@@ -1,0 +1,87 @@
+"""cwipc_util_tpu_torch — the point-cloud framework on PyTorch and CUDA.
+
+The port of ``cwipc_util_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
+Hopper GPU.  It keeps the JAX package's module tree and public names;
+clouds are fixed-capacity SoA buffers on a torch device, and the three
+kernels of the fused downsample -> outlier -> tilefilter chain are
+hand-written CUDA (``csrc/``), built with nvcc at first use.
+
+The device is explicit: sources and converters take ``device`` (default
+``"cuda"``; without CUDA that raises :class:`CwipcError`), and every op
+runs on its input's device.  On CPU tensors each kernel's plain PyTorch
+version runs instead, which is how the parity tests run without a GPU.
+
+This package imports neither jax nor ``cwipc_util_tpu``.
+"""
+
+from .abstract import (
+    cwipc_activesource_abstract,
+    cwipc_pointcloud_abstract,
+    cwipc_sink_abstract,
+    cwipc_source_abstract,
+)
+from .core.buffers import (
+    POINT_DTYPE,
+    POINT_SIZE,
+    PointBuffer,
+    buffer_from_arrays,
+    buffer_from_bytes,
+    buffer_from_numpy,
+    buffer_to_bytes,
+    buffer_to_numpy,
+    resolve_device,
+)
+from .core.errors import CwipcError
+from .core.metadata import cwipc_metadata
+from .core.pointcloud import (
+    cwipc_dangling_allocations,
+    cwipc_point,
+    cwipc_point_array,
+    cwipc_pointcloud_wrapper,
+)
+from .models.synthetic import cwipc_source_synthetic, cwipc_synthetic
+from .ops import cwipc_downsample, cwipc_tilefilter
+from .ops.chain import downsample_outliers_tilefilter
+from .utils.logging import (
+    CWIPC_LOG_LEVEL_DEBUG,
+    CWIPC_LOG_LEVEL_ERROR,
+    CWIPC_LOG_LEVEL_NONE,
+    CWIPC_LOG_LEVEL_TRACE,
+    CWIPC_LOG_LEVEL_WARNING,
+    cwipc_log_configure,
+    cwipc_log_default_callback,
+)
+
+__all__ = [
+    "CWIPC_LOG_LEVEL_DEBUG",
+    "CWIPC_LOG_LEVEL_ERROR",
+    "CWIPC_LOG_LEVEL_NONE",
+    "CWIPC_LOG_LEVEL_TRACE",
+    "CWIPC_LOG_LEVEL_WARNING",
+    "POINT_DTYPE",
+    "POINT_SIZE",
+    "CwipcError",
+    "PointBuffer",
+    "buffer_from_arrays",
+    "buffer_from_bytes",
+    "buffer_from_numpy",
+    "buffer_to_bytes",
+    "buffer_to_numpy",
+    "cwipc_activesource_abstract",
+    "cwipc_dangling_allocations",
+    "cwipc_downsample",
+    "cwipc_log_configure",
+    "cwipc_log_default_callback",
+    "cwipc_metadata",
+    "cwipc_point",
+    "cwipc_point_array",
+    "cwipc_pointcloud_abstract",
+    "cwipc_pointcloud_wrapper",
+    "cwipc_sink_abstract",
+    "cwipc_source_abstract",
+    "cwipc_source_synthetic",
+    "cwipc_synthetic",
+    "cwipc_tilefilter",
+    "downsample_outliers_tilefilter",
+    "resolve_device",
+]

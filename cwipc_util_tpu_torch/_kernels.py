@@ -1,0 +1,165 @@
+"""Build, load and call the hand-written CUDA kernels in ``csrc/``.
+
+The sources compile at first use, with ``nvcc`` alone, into one shared
+library with a plain C interface, loaded through ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o _build/libcwipc_kernels_<hash>.so csrc/*.cu
+
+* The library lands in ``_build/`` beside this file (git-ignored), named
+  by a hash of the sources and flags, so a changed source rebuilds.
+* Two processes may build at once: each takes a file lock, looks again,
+  and compiles to a private name that is renamed into place.
+* ``nvcc`` is looked for on ``PATH``, under ``$CUDA_HOME/bin`` and under
+  ``/usr/local/cuda/bin``.  A missing compiler or a failed build raises
+  :class:`CwipcError` (with nvcc's stderr); nothing falls back.
+* Nothing builds or loads on import, or for CPU tensors: only the first
+  kernel launch on a CUDA tensor calls :func:`load`.
+
+Each C entry point launches on the stream it is given, allocates nothing
+and returns ``cudaGetLastError()``; :func:`check` raises if it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .core.errors import CwipcError
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+NVCC_FALLBACK_DIRS = ("/usr/local/cuda/bin",)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types (all return int, a cudaError_t)
+_SIGNATURES = {
+    # key, fr, rgba, n, ocap, acc, tile_counts, tile_offsets, rows, out_key, nseg, stream
+    "cwipc_segment_reduce": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # x, y, z, count, n, window, kk, md, stream
+    "cwipc_window_knn": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
+    # x, y, z, rgba, keep, count, n, tile_counts, tile_offsets, ox, oy, oz, orgba, nkept, stream
+    "cwipc_compact": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    cuda_home = os.environ.get("CUDA_HOME")
+    if cuda_home:
+        candidates.append(os.path.join(cuda_home, "bin", "nvcc"))
+    candidates += [os.path.join(d, "nvcc") for d in NVCC_FALLBACK_DIRS]
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise CwipcError(
+        "cannot build the CUDA kernels: nvcc is not on PATH, under"
+        " $CUDA_HOME/bin or under " + ", ".join(NVCC_FALLBACK_DIRS)
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists."""
+    digest = _digest()
+    out = BUILD_DIR / f"libcwipc_kernels_{digest}.so"
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / f"{digest}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while we waited
+            return out
+        tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise CwipcError(
+                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, then load the library once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.cwipc_kernels_error_string.argtypes = [ctypes.c_int]
+            lib.cwipc_kernels_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib.cwipc_kernels_error_string(err).decode()
+        raise CwipcError(f"{what}: CUDA error {err} at launch: {msg}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def route(what: str, *tensors: torch.Tensor) -> str:
+    """'cpu' or 'cuda': where a wrapper runs, from its tensors' device.
+
+    The plain PyTorch version serves CPU tensors only; CUDA tensors go to
+    the kernel.  Any other device, or a mix, raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise CwipcError(f"{what}: tensors on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise CwipcError(f"{what}: no kernel for device {dev}")
+    return dev.type
+
+
+def expect(what: str, name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
+    """Check one kernel argument's dtype, shape and contiguity."""
+    if t.dtype != dtype:
+        raise CwipcError(f"{what}: {name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise CwipcError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise CwipcError(f"{what}: {name} is not contiguous")

@@ -1,0 +1,107 @@
+"""Kernel 1: segmented reduction over Morton-sorted voxel runs.
+
+Replaces cwipc_util_tpu/ops/pallas_segment_reduce.py (``_kernel``, its
+pallas_call at :278, wrapper ``segment_reduce_sorted`` :237).  On CUDA
+tensors :func:`segment_reduce_sorted` launches ``csrc/segment_reduce.cu``;
+on CPU tensors it runs :func:`segment_reduce_sorted_plain`, the plain
+PyTorch version of the same function.
+
+Bound on the H100: memory and latency (12 MB in, under 10 MB out at the
+chain's 1M points, no arithmetic to speak of).  The design — a device-wide
+scan of run starts gives each point its run id, integer atomics add it into
+its run's column — is described in the CUDA source.
+
+Output contract (the JAX wrapper's rows 0-7 and key, in a layout of its
+own): ``rows`` f32 [8, out_capacity] = sums of fx, fy, fz (fx = (q + 0.5) /
+1024), sums of r, g, b, the point count and the OR of the tile bytes;
+``key`` int32 [out_capacity], each run's Morton key; ``nseg`` 0-d int32,
+the number of runs, not capped.  Columns past the last run are zero.
+Every value is an exact integer (or multiple of 1/2048) in f32 for runs
+under 8192 points, so the kernel and the plain version agree bit for bit
+with each other and with the TPU kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _kernels
+
+SENTINEL = 2**31 - 1
+NROWS = 8
+TILE = 1024  # scan.cuh's points per block
+
+
+def segment_reduce_sorted_plain(smk, sfr, srgba, out_capacity: int):
+    """Plain PyTorch version of kernel 1 (any device)."""
+    n = smk.shape[0]
+    ocap = int(out_capacity)
+    dev = smk.device
+    valid = smk != SENTINEL
+    prev = torch.cat([torch.full((1,), SENTINEL, dtype=torch.int32, device=dev), smk[:-1]])
+    start = valid & (smk != prev)
+    run = torch.cumsum(start, 0) - 1
+    nseg = start.sum(dtype=torch.int32)
+    use = valid & (run < ocap)
+    col = torch.where(use, run, ocap)  # column ocap collects what is dropped
+    q = sfr.to(torch.int64)
+    c = srgba.to(torch.int64)
+    chans = torch.stack([
+        (q >> 20) & 1023, (q >> 10) & 1023, q & 1023,
+        (c >> 16) & 0xFF, (c >> 8) & 0xFF, c & 0xFF,
+        torch.ones_like(q),
+    ])
+    acc = torch.zeros((7, ocap + 1), dtype=torch.int64, device=dev).index_add_(1, col, chans)
+    tile = (c >> 24) & 0xFF
+    bit = torch.arange(8, dtype=torch.int64, device=dev)[:, None]
+    bit_sums = torch.zeros((8, ocap + 1), dtype=torch.int64, device=dev).index_add_(
+        1, col, (tile[None, :] >> bit) & 1
+    )
+    tile_or = ((bit_sums > 0).to(torch.int64) << bit).sum(0)
+    key = torch.zeros(ocap + 1, dtype=torch.int32, device=dev).scatter_(
+        0, torch.where(start & use, run, ocap), smk
+    )
+    cnt = acc[6]
+    rows = torch.cat([
+        (2 * acc[0:3] + cnt).to(torch.float32) * (1.0 / 2048.0),
+        acc[3:7].to(torch.float32),
+        tile_or[None].to(torch.float32),
+    ])
+    return rows[:, :ocap].contiguous(), key[:ocap].contiguous(), nseg
+
+
+def segment_reduce_sorted(smk, sfr, srgba, out_capacity: int):
+    """Reduce the sorted voxel runs: returns (rows f32 [8, out_capacity],
+    key int32 [out_capacity], nseg 0-d int32).
+
+    ``smk`` holds the sorted Morton keys with INT32_MAX padding, ``sfr``
+    the packed 10-bit in-voxel offsets, ``srgba`` the rgba words, all int32
+    [n] on one device."""
+    what = "segment_reduce_sorted"
+    n = smk.shape[0]
+    ocap = int(out_capacity)
+    for name, t in (("smk", smk), ("sfr", sfr), ("srgba", srgba)):
+        _kernels.expect(what, name, t, torch.int32, (n,))
+    if _kernels.route(what, smk, sfr, srgba) == "cpu":
+        return segment_reduce_sorted_plain(smk, sfr, srgba, ocap)
+    lib = _kernels.load()
+    dev = smk.device
+    ntiles = -(-n // TILE)
+    acc = torch.empty((NROWS, ocap), dtype=torch.int32, device=dev)
+    tile_counts = torch.empty(max(ntiles, 1), dtype=torch.int32, device=dev)
+    tile_offsets = torch.empty_like(tile_counts)
+    rows = torch.empty((NROWS, ocap), dtype=torch.float32, device=dev)
+    key = torch.empty(ocap, dtype=torch.int32, device=dev)
+    nseg = torch.empty((), dtype=torch.int32, device=dev)
+    P = _kernels.ptr
+    with torch.cuda.device(dev):
+        err = lib.cwipc_segment_reduce(
+            P(smk), P(sfr), P(srgba), n, ocap, P(acc), P(tile_counts), P(tile_offsets),
+            P(rows), P(key), P(nseg), _kernels.stream(smk),
+        )
+    _kernels.check(lib, err, what)
+    segment_reduce_sorted.launches += 1
+    return rows, key, nseg
+
+
+segment_reduce_sorted.launches = 0
