@@ -8,21 +8,30 @@ It builds the CUDA kernels from ``cwipc_util_tpu_torch/csrc`` and then, in
 phases that each stop the run at the first failure:
 
 1. start: CUDA present, kernels built, the card's name and power limit;
-2. each kernel against its plain PyTorch version on the card, at the fused
-   chain's shapes and at edge cases (kernels 1 and 3 bit-equal, kernel 2
+2. each kernel against its plain PyTorch version on the card, at the
+   chains' shapes (kernels 1 and 3 at both chains' capacities, kernel 3
+   with the exact chain's keep masks) and at edge cases (kernels 1 and 3
+   bit-equal, kernel 2
    allclose with rtol 1e-5, atol 1e-7: only the order of its final sum
-   differs);
+   differs; kernel 4 on every occupied slot: the covered/uncovered
+   classification equal, kth bit-equal where covered, sums allclose with
+   rtol 1e-5, atol 1e-5);
 3. the fused chain ``downsample_outliers_tilefilter`` on the 1M-point
    synthetic bench cloud (bench.py's settings), with no host sync allowed:
    217,570 voxels exactly, 103,015 +/- 10 kept points, the same result as
    the chain run through the plain versions, and every kernel launched;
-4. times with CUDA events: the chain, its stages, each kernel next to its
-   plain version.
-
-Without CUDA, or without the package beside it, it exits non-zero and
-prints no result.  The last line of stdout is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it holds the kernels' JSON record.
+4. times with CUDA events: the chain, its stages, kernels 1-3 next to
+   their plain versions;
+5. the exact chain ``downsample_outliers_tilefilter_exact`` on the same
+   cloud (bench.py's exact settings): 217,570 voxels, kept points equal to
+   a float64 cKDTree oracle computed here (184,397 +/- 1 at tile 0,
+   92,195 +/- 1 at tile 1), 112 uncovered points fixed up, 90.52 +/- 0.01 %
+   voxel-set agreement with the fast chain, kept points in the input's
+   order, kernels 1, 3 and 4 launched;
+6. the public ``cwipc_remove_outliers`` on a 40k-point synthetic cloud,
+   with and without perTile, against the same oracle, kernel 4 launched
+   and held to its plain version on each column grid the op builds;
+7. times: the exact chain, its stages, kernel 4 next to its plain version.
 """
 
 import json
@@ -46,6 +55,15 @@ WANT_VOXELS = 217570
 WANT_KEPT = 103015
 KEPT_BAND = 10
 REPS = 20
+# bench.py's exact chain: post-downsample capacity 1<<18, column grid
+# gy x gz = 504 x 152 columns of cap 28 slots
+EX_OCAP = 1 << 18
+GY, GZ, GCAP = 504, 152, 28
+CHUNK = 256
+WANT_EX_KEPT = {0: 184397, 1: 92195}  # the float64 oracle's counts
+WANT_RESID = 112
+WANT_AGREE = 90.52
+F32_MAX = 3.4028234663852886e38
 
 SENTINEL = 2**31 - 1
 
@@ -64,9 +82,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import cwipc_util_tpu_torch as port
+    import cwipc_util_tpu_torch.ops as port_ops
     from cwipc_util_tpu_torch import _kernels
     from cwipc_util_tpu_torch.models.synthetic import _generate_host
-    from cwipc_util_tpu_torch.ops import chain, compaction, outliers, voxelize
+    from cwipc_util_tpu_torch.ops import chain, cols_knn, compaction, outliers, voxelize
+    from cwipc_util_tpu_torch.ops.cols_select import cols_select, cols_select_plain
     from cwipc_util_tpu_torch.ops.compact_kernel import compact_kernel_cm, compact_plain_cm
     from cwipc_util_tpu_torch.ops.segment_reduce import (
         segment_reduce_sorted,
@@ -139,7 +159,9 @@ def main() -> int:
     reduce_case(*runs(100, 7, 3000), 2048)                  # capacity not a multiple of the tile
     (_, _, n_over), _ = reduce_case(*runs(4000, 700, 4096), 256)  # runs past out_capacity dropped
     check(int(n_over) > 256, "kernel 1: nseg must count the runs past out_capacity")
-    print(f"{card} phase 2: kernel 1 bit-equal to its plain version at n={smk.shape[0]} and 6 edge cases")
+    reduce_case(smk, sfr, srgba, EX_OCAP)                   # the exact chain's capacity
+    print(f"{card} phase 2: kernel 1 bit-equal to its plain version at n={smk.shape[0]}"
+          f" (capacities {OCAP} and {EX_OCAP}) and 6 edge cases")
 
     x, y, z, rgba, cnt = voxelize._reduce_runs_cm(rows, key, nseg, vmin_safe, CELL, OCAP)
 
@@ -196,7 +218,86 @@ def main() -> int:
     compact_case(rx, ry, rz, rr, rnd, i32(2500))                 # keep set past count; ragged n
     compact_case(rx, ry, rz, rr, torch.ones_like(rnd), i32(3001))  # all kept
     compact_case(rx, ry, rz, rr, rnd, i32(0))                    # count 0
-    print(f"{card} phase 2: kernel 3 bit-equal to its plain version at n={OCAP} and 4 edge cases")
+    # kernel 4 on the planes of the exact chain's downsample (1<<18 rows)
+    ex_x, ex_y, ex_z, ex_rgba, ex_cnt = voxelize.downsample_cm(buf, CELL, EX_OCAP)
+    ex_xyz = torch.stack([ex_x, ex_y, ex_z], dim=-1)
+
+    def maxabs(a, b):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    def r_cut(cell):
+        return float(np.float32(4.0) * np.float32(cell) * np.float32(1.0 - 1e-6))
+
+    def select_case(planes, cell, what, k, gy, gz, cap, voxel_unique=False):
+        got = cols_select(*planes, k=k, gy=gy, gz=gz, cap=cap, chunk=CHUNK, voxel_unique=voxel_unique)
+        want = cols_select_plain(*planes, k=k, gy=gy, gz=gz, cap=cap, chunk=CHUNK, voxel_unique=voxel_unique)
+        torch.cuda.synchronize()
+        off = 4 * gz + 4
+        occ = planes[0][off:off + gy * gz] < F32_MAX / 2
+        cut = r_cut(cell)
+        check(torch.equal((got[1] < cut)[occ], (want[1] < cut)[occ]),
+              f"kernel 4 ({what}): the covered/uncovered classification differs from its plain version")
+        cov = occ & (want[1] < cut)
+        check(same_bits(got[1][cov], want[1][cov]), f"kernel 4 ({what}): kth differs on covered slots")
+        check(torch.allclose(got[0][cov], want[0][cov], rtol=1e-5, atol=1e-5),
+              f"kernel 4 ({what}): sums differ on covered slots:"
+              f" max abs {maxabs(got[0][cov], want[0][cov])}")
+        check(not got[0][~occ].any() and bool((got[1][~occ] == F32_MAX).all()),
+              f"kernel 4 ({what}): empty slots must read sums 0, kth F32_MAX")
+        return got, want, occ, cov
+
+    def planes_of(points, n, cell, gy, gz, cap):
+        pts = np.zeros((max(1024, 1 << int(np.ceil(np.log2(max(n, 2))))), 3), np.float32)
+        pts[:n] = points
+        return cols_knn._cols_build(t(pts), i32(n), cell, gy=gy, gz=gz, cap=cap, chunk=CHUNK)[:3]
+
+    ex_built = cols_knn._cols_build(ex_xyz, ex_cnt, CELL, gy=GY, gz=GZ, cap=GCAP, chunk=CHUNK)
+    ex_planes, (ex_valid, drop_ring, point_slot) = ex_built[:3], ex_built[3:]
+    (sel, sel_kth), (psel, psel_kth), occ, cov = select_case(ex_planes, CELL, "bench planes", K, GY, GZ, GCAP, True)
+    k4_err = max(maxabs(sel[cov], psel[cov]), maxabs(sel_kth[cov], psel_kth[cov]))
+    n_occ, n_cov = int(occ.sum()), int(cov.sum())
+    check(n_occ == int(ex_cnt) == WANT_VOXELS, f"kernel 4: {n_occ} occupied slots, expected {WANT_VOXELS}")
+    # edge cases
+    cell = 0.02
+    e_planes = planes_of(np.zeros((0, 3), np.float32), 0, cell, 24, 24, 12)
+    select_case(e_planes, cell, "count 0", 8, 24, 24, 12)
+    vu = []  # voxel-unique columns of 1-8 points, one column at the full cap of 28
+    for iy in range(3, 28):
+        for iz in range(3, 20):
+            nx = 28 if (iy, iz) == (12, 12) else int(gen.integers(1, 9))
+            for ix in range(nx):
+                vu.append((np.array([ix, iy, iz]) + gen.random(3) * 0.9) * cell)
+    f_planes = planes_of(np.asarray(vu, np.float32), len(vu), cell, 32, 24, 28)
+    check(int((f_planes[0] < F32_MAX / 2).sum(1).max()) == 28, "kernel 4: the full-cap column is missing")
+    select_case(f_planes, cell, "a column at full cap", 30, 32, 24, 28, True)
+    few = np.array([[3, 3, 3], [3, 4, 3], [4, 3, 3], [3, 3, 4], [5, 5, 5], [4, 4, 4]], np.float32) * cell
+    (_, few_kth), _, few_occ, _ = select_case(planes_of(few, 6, cell, 16, 16, 8), cell, "fewer than k", 8, 16, 16, 8)
+    check(int(few_occ.sum()) == 6 and bool((few_kth[few_occ] == F32_MAX).all()),
+          "kernel 4: a query with fewer than k candidates must read kth F32_MAX (uncovered)")
+    h = 1.0 / 64  # an exact lattice: ties of 6, 12 and 8 equal distances
+    lat = np.stack(np.meshgrid(*(np.arange(a) for a in (8, 16, 16)), indexing="ij"), -1).reshape(-1, 3) * h
+    _, _, _, tie_cov = select_case(planes_of(lat.astype(np.float32), len(lat), 2 * h, 8, 8, 32),
+                                   2 * h, "duplicate distances", 10, 8, 8, 32)
+    check(int(tie_cov.sum()) > 1000, "kernel 4: the lattice case has too few covered queries")
+    split = GY * GZ // 2 + 1  # not a multiple of anything the kernel uses
+    a = cols_select(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP, row0=0, nrows=split)
+    b = cols_select(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP, row0=split)
+    torch.cuda.synchronize()
+    check(same_bits(torch.cat([a[0], b[0]]), sel) and same_bits(torch.cat([a[1], b[1]]), sel_kth),
+          "kernel 4: two row ranges concatenated differ from the full run")
+    print(f"{card} phase 2: kernel 4 holds its contract against its plain version on the bench planes"
+          f" ({n_occ} occupied slots, {n_cov} covered, max abs err {k4_err}) and 5 edge cases")
+
+    # kernel 3 on the exact chain's rows (1<<18) and its exact keep masks
+    md_c, unc = cols_knn._cols_finish(sel, sel_kth, point_slot, ex_valid, drop_ring, CELL,
+                                      k=K, gy=GY, gz=GZ, cap=GCAP)
+    check(int(unc.sum()) == WANT_RESID, f"{int(unc.sum())} uncovered points, expected {WANT_RESID}")
+    md_fix = cols_knn.bruteforce_md_subset(ex_xyz, ex_cnt, unc, K)
+    md_all = torch.where(unc, md_fix, md_c)
+    for tile in (0, 1):
+        compact_case(ex_x, ex_y, ex_z, ex_rgba, chain.keep_mask(md_all, ex_rgba, ex_cnt, MULT, tile), ex_cnt)
+    print(f"{card} phase 2: kernel 3 bit-equal to its plain version at n={OCAP}, at n={EX_OCAP} with"
+          f" the exact keep masks of tiles 0 and 1, and 4 edge cases")
 
     # ---- phase 3: the main path, once, through the public chain -----------
     kernels = (segment_reduce_sorted, window_knn_mean_distance_cm, compact_kernel_cm)
@@ -306,6 +407,178 @@ def main() -> int:
             "max_abs_err": err, "ms": kms, "plain_ms": pms,
         })
     print(f"{card} phase 4 ok")
+
+    # ---- phase 5: the exact chain, once, through the public function ------
+    from scipy.spatial import cKDTree
+
+    def oracle(xyz64):
+        """float64 cKDTree mean distances and the keep threshold."""
+        dist, _ = cKDTree(xyz64).query(xyz64, k=K + 1, workers=-1)
+        md64 = dist[:, 1:].mean(axis=1)
+        n = len(md64)
+        var = ((md64 * md64).sum() - md64.sum() ** 2 / n) / max(n - 1, 1)
+        return md64, md64.mean() + MULT * np.sqrt(max(var, 0.0))
+
+    def kept_mask(got_rows, cand_rows, what):
+        """Which candidate rows a result kept, matched by their bytes."""
+        kept = {r.tobytes() for r in got_rows}
+        mask = np.array([r.tobytes() in kept for r in cand_rows], bool)
+        check(len(kept) == len(got_rows) == int(mask.sum()), f"{what}: kept rows are not rows of the input")
+        return mask
+
+    def near_flips(mask, want, md64, thr64, what):
+        """Keep flips against the oracle; all must lie within 1e-5 * thr of
+        the threshold."""
+        flip = mask != want
+        check(bool(np.all(np.abs(md64[flip] - thr64) <= 1e-5 * thr64)),
+              f"{what}: {int(flip.sum())} keep flips against the oracle, not all near the threshold")
+        return int(flip.sum())
+
+    def exact(tile):
+        return port.downsample_outliers_tilefilter_exact(
+            buf, CELL, K, MULT, tile, EX_OCAP, GY, GZ, GCAP, chunk=CHUNK, cell_normal=True
+        )
+
+    all_kernels = kernels + (cols_select,)
+    torch.cuda.synchronize()
+    for f in all_kernels:
+        f.launches = 0
+    ex_out, ex_resid = exact(0)
+    torch.cuda.synchronize()
+    ex_launches = {f.__name__: f.launches for f in all_kernels}
+    on_path = ("segment_reduce_sorted", "cols_select", "compact_kernel_cm")
+    check(all(ex_launches[name] >= 1 for name in on_path),
+          f"a kernel of the exact path was not launched: {ex_launches}")
+    n_vox = int(ex_cnt)
+    check(n_vox == WANT_VOXELS, f"exact chain: {n_vox} voxels, expected exactly {WANT_VOXELS}")
+    ex_rows = ex_xyz[:n_vox].cpu().numpy()
+    md64, thr64 = oracle(ex_rows.astype(np.float64))
+    tiles = ((ex_rgba[:n_vox].cpu().numpy().view(np.uint32) >> 24) & 0xFF)
+    ex_kept, ex_flips, resids = {}, {}, {}
+    for tile in (0, 1):
+        out_t, resid_t = (ex_out, ex_resid) if tile == 0 else exact(tile)
+        want = (md64 <= thr64) & ((tiles == tile) | (tile == 0))
+        n_want = int(want.sum())
+        check(abs(n_want - WANT_EX_KEPT[tile]) <= 1,
+              f"the oracle keeps {n_want} at tile {tile}, expected {WANT_EX_KEPT[tile]} +/- 1")
+        m = int(out_t.count)
+        check(abs(m - WANT_EX_KEPT[tile]) <= 1, f"exact chain keeps {m} at tile {tile},"
+              f" expected {WANT_EX_KEPT[tile]} +/- 1 (the oracle: {n_want})")
+        check(out_t.xyz.shape == (EX_OCAP, 3) and bool(torch.isfinite(out_t.xyz).all())
+              and not out_t.xyz[m:].any() and not out_t.rgba[m:].any(), "exact chain: output shape or tail")
+        what = f"exact chain, tile {tile}"
+        got_rows = out_t.xyz[:m].cpu().numpy()
+        mask = kept_mask(got_rows, ex_rows, what)
+        check(np.array_equal(got_rows.view(np.int32), ex_rows[mask].view(np.int32)),
+              f"{what}: kept rows are not in the input's order")
+        ex_flips[tile] = near_flips(mask, want, md64, thr64, what)
+        resids[tile] = int(resid_t)
+        check(resids[tile] == WANT_RESID, f"exact chain: {resids[tile]} uncovered points, expected {WANT_RESID}")
+        ex_kept[tile] = (m, n_want, out_t)
+    fast_set = {r.tobytes() for r in out.xyz[:int(out.count)].cpu().numpy()}
+    exact_set = {r.tobytes() for r in ex_kept[1][2].xyz[:ex_kept[1][0]].cpu().numpy()}
+    agree = 100.0 * (n_vox - len(fast_set ^ exact_set)) / n_vox
+    check(abs(agree - WANT_AGREE) <= 0.01,
+          f"voxel-set agreement of the fast and exact chains {agree} %, expected {WANT_AGREE} +/- 0.01")
+    print(f"{card} phase 5 ok: exact chain {n_vox} voxels; kept {ex_kept[0][0]} at tile 0 (oracle"
+          f" {ex_kept[0][1]}, {ex_flips[0]} flips near the threshold), {ex_kept[1][0]} at tile 1 (oracle"
+          f" {ex_kept[1][1]}, {ex_flips[1]} flips); {resids[0]} uncovered fixed up; agreement with the"
+          f" fast chain {agree} %; launches {ex_launches}")
+
+    # ---- phase 6: the public cwipc_remove_outliers --------------------------
+    src = port.cwipc_synthetic(0, 40000, device=dev)
+    src.start()
+    pc = src.get()
+    src.stop()
+    down = port.cwipc_downsample(pc, 0.008)
+    arr = down.get_numpy_array()
+    check(len(arr) > 4096, f"the public op's cloud has {len(arr)} points: not the column route")
+    def recording(xyz_, count_, cell_, k_, **kw):
+        grids.append((xyz_, count_, cell_, k_, kw))
+        return cols_knn.cols_knn_mean_distance(xyz_, count_, cell_, k_, **kw)
+
+    for per_tile in (False, True):
+        grids = []
+        port_ops.cols_knn_mean_distance = recording
+        cols_select.launches = 0
+        try:
+            clean = port.cwipc_remove_outliers(down, K, MULT, per_tile)
+            torch.cuda.synchronize()
+        finally:
+            port_ops.cols_knn_mean_distance = cols_knn.cols_knn_mean_distance
+        op_launches = cols_select.launches
+        check(op_launches >= 1, f"cwipc_remove_outliers (perTile={per_tile}) did not launch kernel 4")
+        got = clean.get_numpy_array()
+        if per_tile:
+            t_all = arr["tile"]
+            _, first = np.unique(t_all, return_index=True)
+            parts = [arr if t == 0 else arr[t_all == t] for t in t_all[np.sort(first)]]
+        else:
+            parts = [arr]
+        what = f"cwipc_remove_outliers(perTile={per_tile})"
+        got_keys = {r.tobytes() for r in got}
+        check(len(got_keys) == len(got), f"{what}: duplicate points")
+        n_flips, n_want, survivors = 0, 0, []
+        for part in parts:
+            md_p, thr_p = oracle(np.stack([part["x"], part["y"], part["z"]], -1).astype(np.float64))
+            want = md_p <= thr_p
+            mask = np.array([r.tobytes() in got_keys for r in part], bool)
+            n_flips += near_flips(mask, want, md_p, thr_p, what)
+            n_want += int(want.sum())
+            survivors.append(part[mask])
+        # each part's survivors in order, the parts in order of first appearance
+        check(np.array_equal(got, np.concatenate(survivors)), f"{what}: points out of order")
+        check(clean.timestamp() == down.timestamp() and clean.cellsize() == down.cellsize(),
+              "cwipc_remove_outliers: timestamp or cellsize changed")
+        # kernel 4 against its plain version on the grids the op built
+        check(len(grids) == op_launches, f"{what}: {len(grids)} column grids, {op_launches} launches")
+        for xyz_, count_, cell_, k_, kw in grids:
+            g_planes = cols_knn._cols_build(xyz_, count_, cell_, gy=kw["gy"], gz=kw["gz"], cap=kw["cap"],
+                                            chunk=CHUNK, vmin_override=kw["vmin_override"])[:3]
+            select_case(g_planes, cell_, f"{what}, grid {kw['gy']} x {kw['gz']} x {kw['cap']}", k_,
+                        kw["gy"], kw["gz"], kw["cap"])
+        print(f"{card} phase 6: cwipc_remove_outliers(perTile={per_tile}) on {len(arr)} points kept"
+              f" {len(got)} (oracle {n_want}, {n_flips} flips near the threshold), kernel 4 launched"
+              f" {op_launches} times and held to its plain version on grids"
+              f" {[(kw['gy'], kw['gz'], kw['cap']) for *_, kw in grids]}")
+        clean.free()
+    for p_ in (pc, down):
+        p_.free()
+    print(f"{card} phase 6 ok")
+
+    # ---- phase 7: times of the exact chain and of kernel 4 ----------------
+    ex_ms = time_ms(lambda: exact(0), reps=10, warm=2)
+    print(f"{card} exact chain: median {ex_ms} ms over 10 warm runs,"
+          f" {HSTEPS * HSTEPS / (ex_ms / 1e3)} points/s")
+    ex_stages = {
+        "downsample": lambda: voxelize.downsample_cm(buf, CELL, EX_OCAP),
+        "build": lambda: cols_knn._cols_build(ex_xyz, ex_cnt, CELL, gy=GY, gz=GZ, cap=GCAP, chunk=CHUNK),
+        "select (kernel 4)": lambda: cols_select(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP),
+        "finish": lambda: cols_knn._cols_finish(sel, sel_kth, point_slot, ex_valid, drop_ring, CELL,
+                                                k=K, gy=GY, gz=GZ, cap=GCAP),
+        "fixup (brute force, 112 points)": lambda: cols_knn.bruteforce_md_subset(ex_xyz, ex_cnt, unc, K),
+        "keep + compact": lambda: compaction.compact_cm(
+            ex_x, ex_y, ex_z, ex_rgba, chain.keep_mask(md_all, ex_rgba, ex_cnt, MULT, 0), ex_cnt),
+    }
+    for name, fn in ex_stages.items():
+        print(f"{card} exact stage {name}: median {time_ms(fn, reps=10, warm=2)} ms")
+
+    def k4_kernel():
+        return cols_select(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP)
+
+    def k4_plain():
+        return cols_select_plain(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP, chunk=CHUNK, voxel_unique=True)
+
+    p1, k1, k2, p2 = (time_ms(k4_plain, reps=3, warm=1), time_ms(k4_kernel), time_ms(k4_kernel),
+                      time_ms(k4_plain, reps=3, warm=1))
+    kms, pms = statistics.median([k1, k2]), statistics.median([p1, p2])
+    print(f"{card} kernel cols_select: {kms} ms (runs {k1}, {k2}); plain PyTorch {pms} ms (runs {p1}, {p2})")
+    record.append({
+        "name": "cols_select", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/cols_select.cu",
+        "replaces": "cwipc_util_tpu/ops/pallas_cols_select.py:502", "launches": ex_launches["cols_select"],
+        "max_abs_err": k4_err, "ms": kms, "plain_ms": pms,
+    })
+    print(f"{card} phase 7 ok")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -2,9 +2,10 @@
 
 The port of ``cwipc_util_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA
 Hopper GPU.  It keeps the JAX package's module tree and public names;
-clouds are fixed-capacity SoA buffers on a torch device, and the three
-kernels of the fused downsample -> outlier -> tilefilter chain are
-hand-written CUDA (``csrc/``), built with nvcc at first use.
+clouds are fixed-capacity SoA buffers on a torch device.  The kernels of
+the fused downsample -> outlier -> tilefilter chains and of
+``cwipc_remove_outliers`` are hand-written CUDA (``csrc/``), built with
+nvcc at first use.
 
 The device is explicit: sources and converters take ``device`` (default
 ``"cuda"``; without CUDA that raises :class:`CwipcError`), and every op
@@ -40,8 +41,14 @@ from .core.pointcloud import (
     cwipc_pointcloud_wrapper,
 )
 from .models.synthetic import cwipc_source_synthetic, cwipc_synthetic
-from .ops import cwipc_downsample, cwipc_tilefilter
-from .ops.chain import downsample_outliers_tilefilter
+from .ops import (
+    cwipc_downsample,
+    cwipc_join,
+    cwipc_join_multi,
+    cwipc_remove_outliers,
+    cwipc_tilefilter,
+)
+from .ops.chain import downsample_outliers_tilefilter, downsample_outliers_tilefilter_exact
 from .utils.logging import (
     CWIPC_LOG_LEVEL_DEBUG,
     CWIPC_LOG_LEVEL_ERROR,
@@ -70,6 +77,8 @@ __all__ = [
     "cwipc_activesource_abstract",
     "cwipc_dangling_allocations",
     "cwipc_downsample",
+    "cwipc_join",
+    "cwipc_join_multi",
     "cwipc_log_configure",
     "cwipc_log_default_callback",
     "cwipc_metadata",
@@ -77,11 +86,13 @@ __all__ = [
     "cwipc_point_array",
     "cwipc_pointcloud_abstract",
     "cwipc_pointcloud_wrapper",
+    "cwipc_remove_outliers",
     "cwipc_sink_abstract",
     "cwipc_source_abstract",
     "cwipc_source_synthetic",
     "cwipc_synthetic",
     "cwipc_tilefilter",
     "downsample_outliers_tilefilter",
+    "downsample_outliers_tilefilter_exact",
     "resolve_device",
 ]

@@ -1,10 +1,12 @@
 """Build, load and call the hand-written CUDA kernels in ``csrc/``.
 
 The sources compile at first use, with ``nvcc`` alone, into one shared
-library with a plain C interface, loaded through ctypes:
+library with a plain C interface, loaded through ctypes: one compile per
+source, all started together, then one link with the same flags:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/libcwipc_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu             (each)
+    nvcc <same flags> -shared -o _build/libcwipc_kernels_<hash>.so <objs>
 
 * The library lands in ``_build/`` beside this file (git-ignored), named
   by a hash of the sources and flags, so a changed source rebuilds.
@@ -39,7 +41,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 NVCC_FALLBACK_DIRS = ("/usr/local/cuda/bin",)
 
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "cwipc_window_knn": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     # x, y, z, rgba, keep, count, n, tile_counts, tile_offsets, ox, oy, oz, orgba, nkept, stream
     "cwipc_compact": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
+    # xs, ys, zs, cap, gz, k, row0, nrows, sums, kth, stream
+    "cwipc_cols_select": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -86,6 +90,16 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Start every command at once, wait for all, raise on the first failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errs = [proc.communicate()[1] for proc in procs]
+    for cmd, proc, err in zip(cmds, procs, errs):
+        if proc.returncode != 0:
+            raise CwipcError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{err}")
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the hashed library unless it exists."""
     digest = _digest()
@@ -99,14 +113,16 @@ def build() -> Path:
         if out.exists():  # another process built it while we waited
             return out
         tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
+        objs = [BUILD_DIR / f".{src.stem}.{digest}.{os.getpid()}.o" for src in _sources()]
+        try:
+            _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                      for src, obj in zip(_sources(), objs)])
+            _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+            os.replace(tmp, out)
+        finally:
             tmp.unlink(missing_ok=True)
-            raise CwipcError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
+            for obj in objs:
+                obj.unlink(missing_ok=True)
     return out
 
 

@@ -1,10 +1,10 @@
 """Host-side point-cloud object with the reference-compatible API.
 
 The port of cwipc_util_tpu/core/pointcloud.py, restricted to what the
-downsample -> outlier -> tilefilter slice uses: construction from a device
-buffer or from host points, the accessors, clone/free and the allocation
-counter.  The native handoff (``as_cwipc_p``) and ``get_packet`` are not
-ported yet.
+ported ops use: construction from a device buffer or from host points, the
+accessors (``get_numpy_matrix`` included), the timestamp/cellsize setters,
+clone/free and the allocation counter.  The native handoff
+(``as_cwipc_p``) and ``get_packet`` are not ported yet.
 
 As in the JAX package, points live on the device and the host accessors
 copy lazily and cache; ``count`` stays a device scalar until asked for.
@@ -208,6 +208,26 @@ class cwipc_pointcloud_wrapper:
     def cellsize(self) -> float:
         return self._cellsize
 
+    def _set_cellsize(self, cellsize: float) -> None:
+        """Set cellsize; negative asks for the reference's guess heuristic.
+
+        Quirk preserved from src/cwipc_util.cpp:176-204: the reference's
+        "adjacent point" scan never advances its prev iterator, so the guess
+        is the minimum distance from any point to the FIRST point.
+        """
+        if cellsize < 0 and (self._buffer is not None or self._lazy_host is not None):
+            arr = self._numpy()
+            if arr.shape[0] >= 2:
+                xyz = np.stack([arr["x"], arr["y"], arr["z"]], axis=-1)
+                d = np.linalg.norm(xyz[1:] - xyz[0], axis=-1)
+                cellsize = float(d.min()) if d.size else 0.0
+            else:
+                cellsize = 0.0
+        self._cellsize = float(cellsize)
+
+    def _set_timestamp(self, timestamp: int) -> None:
+        self._timestamp = int(timestamp)
+
     def count(self) -> int:
         if self._buffer is None and not self._owned:
             from ..utils.logging import CWIPC_LOG_LEVEL_WARNING, cwipc_log
@@ -239,6 +259,20 @@ class cwipc_pointcloud_wrapper:
 
     def get_numpy_array(self) -> np.ndarray:
         return self._numpy().copy()
+
+    def get_numpy_matrix(self, onlyGeometry: bool = False) -> np.ndarray:
+        arr = self._numpy()
+        ncol = 3 if onlyGeometry else 7
+        m = np.zeros((arr.shape[0], ncol), np.float32)
+        m[:, 0] = arr["x"]
+        m[:, 1] = arr["y"]
+        m[:, 2] = arr["z"]
+        if not onlyGeometry:
+            m[:, 3] = arr["r"]
+            m[:, 4] = arr["g"]
+            m[:, 5] = arr["b"]
+            m[:, 6] = arr["tile"]
+        return m
 
     def access_metadata(self) -> cwipc_metadata:
         if self._metadata is None:

@@ -1,4 +1,4 @@
-"""Masked stream compaction: compact, compact_cm and tilefilter.
+"""Masked stream compaction (compact, compact_cm, tilefilter) and join.
 
 The port of the slice's part of cwipc_util_tpu/ops/compaction.py.  "Remove
 some points" is a keep mask, an order-preserving compaction into a buffer
@@ -7,7 +7,7 @@ count; nothing waits for the host.
 
 ``tilefilter(buf, t)`` keeps points whose tile == t, or all points when
 t == 0 (exact equality, not a bitmask test — cwipc_filters.cpp:295-299).
-tilemap, crop, colormap, join and transform44 are not ported yet.
+tilemap, crop, colormap and transform44 are not ported yet.
 """
 
 from __future__ import annotations
@@ -43,3 +43,25 @@ def tile_keep(rgba: torch.Tensor, tile: int) -> torch.Tensor:
 def tilefilter(buf: PointBuffer, tile: int) -> PointBuffer:
     """Select points with tile == tile, or all points when tile == 0."""
     return compact(buf, tile_keep(buf.rgba, tile))
+
+
+def join(buf1: PointBuffer, buf2: PointBuffer, capacity: int) -> PointBuffer:
+    """Concatenate two buffers into a buffer of the given capacity.
+
+    Points of buf1 come first, then points of buf2, as in the reference
+    (cwipc_filters.cpp:403-409).  The counts stay on the device: each point
+    is scattered to its slot, or to a sink row past ``capacity`` that is
+    cut off (points that do not fit are dropped; the count is the sum)."""
+    dev = buf1.device
+    cap = int(capacity)
+    idx1 = torch.arange(buf1.capacity, dtype=torch.int32, device=dev)
+    idx2 = torch.arange(buf2.capacity, dtype=torch.int32, device=dev)
+    tgt1 = torch.where(idx1 < buf1.count, idx1, cap)
+    tgt2 = idx2 + buf1.count
+    tgt2 = torch.where((idx2 < buf2.count) & (tgt2 < cap), tgt2, cap)
+    tgt = torch.cat([tgt1, tgt2]).long()
+    xyz = torch.zeros((cap + 1, 3), dtype=torch.float32, device=dev)
+    rgba = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
+    xyz[tgt] = torch.cat([buf1.xyz, buf2.xyz])
+    rgba[tgt] = torch.cat([buf1.rgba, buf2.rgba])
+    return PointBuffer(xyz=xyz[:cap], rgba=rgba[:cap], count=buf1.count + buf2.count)

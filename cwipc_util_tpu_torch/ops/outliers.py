@@ -7,17 +7,70 @@ mean distance to its k nearest neighbours, the global mean and (n-1)
 standard deviation of those means, and keep where md <= mu + mult * sigma.
 
 ``_mean_knn_dist_window`` is the Morton-window approximation of the first
-step and the plain version of kernel 2 (ops/window_knn.py).  The exact
-and grid methods are not ported yet.
+step and the plain version of kernel 2 (ops/window_knn.py).
+``_mean_knn_dist_bruteforce`` is the exact method for small clouds; the
+column-grid method for large ones is ops/cols_knn.py.  The ``grid``
+method is not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
+from ..core.buffers import PointBuffer
+from .compaction import compact
+
 F32_MAX = 3.4028234663852886e38
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """Run float32 matrix products in full float32 on the card, whatever
+    the process default says.  The |a|^2 + |b|^2 - 2ab expansion of the
+    brute-force kNN cancels badly: TF32's ~1e-3 relative error on the
+    cross term shifts distances far past the keep threshold's sensitivity
+    (the JAX package pins Precision.HIGHEST for the same reason)."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.fp32_precision
+    mm.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        mm.fp32_precision = prev
+
+
+def _knn_sum_rows(rows, row_sq, row_idx, xyz, sq, col_mask, k: int) -> torch.Tensor:
+    """Sum of the k smallest distances from each of ``rows`` [B, 3] to the
+    points of ``xyz`` [N, 3], excluding column ``row_idx`` (self) and the
+    columns that ``col_mask`` sets to F32_MAX."""
+    with _full_f32_matmul():
+        cross = rows @ xyz.T
+    d2 = row_sq[:, None] + sq[None, :] - 2.0 * cross
+    d2 = torch.clamp_min(d2, 0.0) + col_mask[None, :]
+    cols = torch.arange(xyz.shape[0], device=xyz.device)
+    d2 = torch.where(cols[None, :] == row_idx[:, None], F32_MAX, d2)
+    small = torch.topk(d2, k, dim=-1, largest=False).values
+    dists = torch.sqrt(torch.clamp_min(small, 0.0))
+    dists = torch.where(torch.isfinite(dists) & (small < F32_MAX / 2), dists, 0.0)
+    return dists.sum(-1)
+
+
+def _mean_knn_dist_bruteforce(xyz: torch.Tensor, count: torch.Tensor, k: int, block: int = 1024) -> torch.Tensor:
+    """Per-point mean distance to the k nearest neighbours (excluding
+    self), by blocks of ``block`` rows against the whole buffer."""
+    cap = xyz.shape[0]
+    valid = torch.arange(cap, dtype=torch.int32, device=xyz.device) < count
+    sq = (xyz * xyz).sum(-1)
+    col_mask = torch.where(valid, 0.0, F32_MAX)
+    out = []
+    for start in range(0, cap, block):
+        rows = xyz[start:start + block]
+        idx = torch.arange(start, start + rows.shape[0], device=xyz.device)
+        out.append(_knn_sum_rows(rows, sq[start:start + block], idx, xyz, sq, col_mask, k) / float(k))
+    return torch.where(valid, torch.cat(out), 0.0)
 
 
 def _keep_from_mean_dists(mean_dist: torch.Tensor, valid: torch.Tensor, mult: float) -> torch.Tensor:
@@ -72,3 +125,21 @@ def _mean_knn_dist_window(xyz: torch.Tensor, count: torch.Tensor, k: int, window
     dists = torch.where(smallest < F32_MAX / 2, torch.sqrt(torch.clamp_min(smallest, 0.0)), 0.0)
     md = dists.sum(0) / float(kk)
     return torch.where(idx < count, md, 0.0)
+
+
+def remove_outliers(buf: PointBuffer, k: int, mult: float, method: str = "exact", window: int = 32) -> PointBuffer:
+    """Statistical outlier removal over the whole buffer (no tiling).
+
+    ``exact`` is the brute-force kNN; ``window`` the Morton-window
+    approximation through kernel 2 (ops/window_knn.py)."""
+    if method == "window":
+        from .window_knn import window_knn_mean_distance_cm
+
+        x, y, z = (buf.xyz[:, a].contiguous() for a in range(3))
+        md = window_knn_mean_distance_cm(x, y, z, buf.count, k, window)
+    elif method == "exact":
+        md = _mean_knn_dist_bruteforce(buf.xyz, buf.count, k)
+    else:
+        raise ValueError(f"remove_outliers: method {method!r} is not ported (exact, window)")
+    keep = _keep_from_mean_dists(md, buf.valid_mask(), mult)
+    return compact(buf, keep)
