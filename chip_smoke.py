@@ -31,7 +31,38 @@ phases that each stop the run at the first failure:
 6. the public ``cwipc_remove_outliers`` on a 40k-point synthetic cloud,
    with and without perTile, against the same oracle, kernel 4 launched
    and held to its plain version on each column grid the op builds;
-7. times: the exact chain, its stages, kernel 4 next to its plain version.
+7. times: the exact chain, its stages, kernel 4 next to its plain version;
+8. kernel 5 against its plain version at edge cases: d2 bit-equal and ids
+   equal on every slot, empty query slots and empty rings at
+   (F32_MAX, INT32_MAX);
+9. multi-camera registration, ``MultiCameraIterative`` with the default
+   GICP aligner and symmetric analyzer, on the 3-camera, 30,000-point
+   ground-truth scene of ``cwipc create_analysis_test`` (seed 42, noise
+   2 mm, perturbations 3 cm / 0.06 rad): the register script's worst
+   per-camera mode correspondence below 0.006 and below a third of its
+   value before, kernels 3 and 5 launched, every aligner run on the grid;
+   the grid NN of each aligner pair against a float64 cKDTree oracle,
+   kernel 5 against its plain version on every grid pair the flow built,
+   and kernel 3 bit-equal to its plain version on every compaction the
+   flow made (its inputs recorded as the flow ran);
+10. a 160,000-point pair (the whole body with 2 mm noise, and a copy moved
+   by the seed-42 perturbation with its own noise): the grid NN and the
+   two-scale search against the oracle, one GICP run on kernel 5 and on
+   its plain version (both recover the perturbation within 4 mm and
+   0.02 rad and agree within 1 mm and 5e-3 rad), one analyzer query;
+11. times: the flow and its phases, one ICP run at 30k and 160k points,
+   the grid query's parts, kernel 5 next to its plain version, the grid
+   search next to the two-scale search.
+
+Each phase line ends with the wall seconds the phase took.  The kernels
+line gives, per kernel, its time, its plain version's, its bound (the
+larger of its bytes over 3.35 TB/s and its float32 operations over
+67 TFLOP/s, an H100 SXM's published peaks, counted from this run's
+inputs: only the rows, slots and points the function must read) and, where one PyTorch call computes the same function, that
+call's time.
+
+Run alone, outside a checkout, or without CUDA, it exits 2 and prints no
+result.
 """
 
 import json
@@ -66,11 +97,50 @@ WANT_AGREE = 90.52
 F32_MAX = 3.4028234663852886e38
 
 SENTINEL = 2**31 - 1
+# an H100 SXM's published peaks (NVIDIA's data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# registration: cwipc create_analysis_test's ground-truth scene
+# (tests/test_scripts.py:417-420) and a 160k-point pair
+REG_N, REG_NOISE, REG_TRANSLATION, REG_ROTATION, REG_SEED = 30000, 0.002, 0.03, 0.06, 42
+PAIR_N = 160000
+PAIR_MAXD = 0.03  # covers the pair's largest displacement (3.4 cm at 99.9 %) and fits a grid
 
 
 def check(cond, what):
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {what}")
+
+
+def bound(nbytes, flops):
+    """(ms, what bounds it): the larger of the bytes over the HBM rate and
+    the float32 operations over the peak rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def tensor_bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def perturbation(seed, max_translation, max_rotation):
+    """A random rigid transform, as cwipc create_analysis_test makes them
+    (cwipc_util_tpu/scripts/cwipc_create_analysis_test.py:24-35)."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(-max_translation, max_translation, 3)
+    angle = rng.uniform(-max_rotation, max_rotation)
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    R = np.identity(3) + math.sin(angle) * K + (1 - math.cos(angle)) * (K @ K)
+    T = np.identity(4)
+    T[:3, :3] = R
+    T[:3, 3] = t
+    return T
 
 
 def main() -> int:
@@ -80,7 +150,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to check", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "cwipc_util_tpu_torch")):
+        print("chip_smoke: the cwipc_util_tpu_torch package is not beside this script;"
+              " run it from the root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
     import cwipc_util_tpu_torch as port
     import cwipc_util_tpu_torch.ops as port_ops
     from cwipc_util_tpu_torch import _kernels
@@ -111,7 +186,15 @@ def main() -> int:
     ).stdout.strip().splitlines()[0].strip()
     print(smi)
     card = f"[{smi}]"
-    print(f"{card} phase 1 ok: kernels built in {build_s} s into {lib_path.name};"
+    t_phase = [t0]
+
+    def lap():
+        """Wall seconds since the previous phase ended."""
+        now = time.perf_counter()
+        dt, t_phase[0] = now - t_phase[0], now
+        return f"({dt:.1f} s)"
+
+    print(f"{card} phase 1 ok {lap()}: kernels built in {build_s} s into {lib_path.name};"
           f" torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     def t(a):
@@ -249,10 +332,13 @@ def main() -> int:
     def planes_of(points, n, cell, gy, gz, cap):
         pts = np.zeros((max(1024, 1 << int(np.ceil(np.log2(max(n, 2))))), 3), np.float32)
         pts[:n] = points
-        return cols_knn._cols_build(t(pts), i32(n), cell, gy=gy, gz=gz, cap=cap, chunk=CHUNK)[:3]
+        xs, ys, zs, _orig, _valid, _drop, _slot = cols_knn._cols_build(
+            t(pts), i32(n), cell, gy=gy, gz=gz, cap=cap, chunk=CHUNK, want_orig=False)
+        return xs, ys, zs
 
-    ex_built = cols_knn._cols_build(ex_xyz, ex_cnt, CELL, gy=GY, gz=GZ, cap=GCAP, chunk=CHUNK)
-    ex_planes, (ex_valid, drop_ring, point_slot) = ex_built[:3], ex_built[3:]
+    ex_xs, ex_ys, ex_zs, _, ex_valid, drop_ring, point_slot = cols_knn._cols_build(
+        ex_xyz, ex_cnt, CELL, gy=GY, gz=GZ, cap=GCAP, chunk=CHUNK, want_orig=False)
+    ex_planes = (ex_xs, ex_ys, ex_zs)
     (sel, sel_kth), (psel, psel_kth), occ, cov = select_case(ex_planes, CELL, "bench planes", K, GY, GZ, GCAP, True)
     k4_err = max(maxabs(sel[cov], psel[cov]), maxabs(sel_kth[cov], psel_kth[cov]))
     n_occ, n_cov = int(occ.sum()), int(cov.sum())
@@ -298,6 +384,7 @@ def main() -> int:
         compact_case(ex_x, ex_y, ex_z, ex_rgba, chain.keep_mask(md_all, ex_rgba, ex_cnt, MULT, tile), ex_cnt)
     print(f"{card} phase 2: kernel 3 bit-equal to its plain version at n={OCAP}, at n={EX_OCAP} with"
           f" the exact keep masks of tiles 0 and 1, and 4 edge cases")
+    print(f"{card} phase 2 ok {lap()}")
 
     # ---- phase 3: the main path, once, through the public chain -----------
     kernels = (segment_reduce_sorted, window_knn_mean_distance_cm, compact_kernel_cm)
@@ -344,7 +431,7 @@ def main() -> int:
               "the kernel chain's output differs from the plain chain's")
     else:
         check(abs(int(p_out.count) - n_kept) <= n_flips, "kept counts differ by more than the flips")
-    print(f"{card} phase 3 ok: {n_vox} voxels, {n_kept} kept (plain chain {int(p_out.count)},"
+    print(f"{card} phase 3 ok {lap()}: {n_vox} voxels, {n_kept} kept (plain chain {int(p_out.count)},"
           f" {n_flips} keep flips near the threshold), launches {launches}, no host sync")
 
     # ---- phase 4: times ----------------------------------------------------
@@ -384,6 +471,27 @@ def main() -> int:
     for name, ms in stage_ms.items():
         print(f"{card} stage {name}: median {ms} ms")
 
+    # bounds from this run's inputs, counting only the bytes the function
+    # needs: kernel 1 reads every key of the sorted stream (a sentinel marks
+    # its end) but the fracs and colours of the valid points only, and
+    # writes [8, ocap] rows, keys and the run count (~8 integer adds a
+    # point); kernel 2 reads the valid points' coordinates, writes md in
+    # full, and computes 2W d2 (8 flops each), k square roots and k adds a
+    # valid point; kernel 3 reads the keep flags below the count and the
+    # four words of each kept point, and writes four words a slot and the
+    # kept count
+    n_valid = int(cnt)
+    n_sorted = int((smk != SENTINEL).sum())
+    n_kept3 = int(keep[:n_valid].sum())
+    packed = torch.stack([x.view(torch.int32), y.view(torch.int32), z.view(torch.int32), rgba], dim=-1)
+    bounds = [
+        bound(tensor_bytes(smk, rows, key, nseg) + 8 * n_sorted, 8 * n_sorted),
+        bound(12 * n_valid + tensor_bytes(cnt, md), n_valid * (2 * WINDOW * 8 + 2 * K)),
+        bound(n_valid + tensor_bytes(cnt) + 16 * n_kept3 + 4 * tensor_bytes(x) + 4, 0),
+    ]
+    print(f"{card} bound inputs: kernel 1 {smk.shape[0]} keys, {n_sorted} valid; kernel 2 {n_valid} valid"
+          f" of {x.shape[0]} slots; kernel 3 {n_kept3} kept of {n_valid} below the count")
+    libs = [None, None, lambda: packed[keep]]  # kernel 3: boolean-mask indexing of the [n, 4] rows
     pairs = [
         ("segment_reduce", "segment_reduce.cu", "pallas_segment_reduce.py:278", k1_err,
          lambda: segment_reduce_sorted(smk, sfr, srgba, OCAP),
@@ -396,17 +504,20 @@ def main() -> int:
          lambda: compact_plain_cm(x, y, z, rgba, keep, cnt)),
     ]
     record = []
-    for (name, src, tpu, err, kfn, pfn), f in zip(pairs, kernels):
+    for (name, src, tpu, err, kfn, pfn), f, (bms, bby), lib in zip(pairs, kernels, bounds, libs):
         # plain, kernel, kernel, plain: one card, one call, in turns
         p1, k1, k2, p2 = time_ms(pfn), time_ms(kfn), time_ms(kfn), time_ms(pfn)
         kms, pms = statistics.median([k1, k2]), statistics.median([p1, p2])
-        print(f"{card} kernel {name}: {kms} ms (runs {k1}, {k2}); plain PyTorch {pms} ms (runs {p1}, {p2})")
+        lms = time_ms(lib) if lib else None
+        print(f"{card} kernel {name}: {kms} ms (runs {k1}, {k2}); plain PyTorch {pms} ms (runs {p1}, {p2});"
+              f" bound {bms} ms ({bby}); one PyTorch call {lms} ms")
         record.append({
             "name": name, "route": "cuda", "source": f"cwipc_util_tpu_torch/csrc/{src}",
             "replaces": f"cwipc_util_tpu/ops/{tpu}", "launches": launches[f.__name__],
-            "max_abs_err": err, "ms": kms, "plain_ms": pms,
+            "max_abs_err": err, "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": lms,
         })
-    print(f"{card} phase 4 ok")
+    print(f"{card} phase 4 ok {lap()}")
 
     # ---- phase 5: the exact chain, once, through the public function ------
     from scipy.spatial import cKDTree
@@ -480,7 +591,7 @@ def main() -> int:
     agree = 100.0 * (n_vox - len(fast_set ^ exact_set)) / n_vox
     check(abs(agree - WANT_AGREE) <= 0.01,
           f"voxel-set agreement of the fast and exact chains {agree} %, expected {WANT_AGREE} +/- 0.01")
-    print(f"{card} phase 5 ok: exact chain {n_vox} voxels; kept {ex_kept[0][0]} at tile 0 (oracle"
+    print(f"{card} phase 5 ok {lap()}: exact chain {n_vox} voxels; kept {ex_kept[0][0]} at tile 0 (oracle"
           f" {ex_kept[0][1]}, {ex_flips[0]} flips near the threshold), {ex_kept[1][0]} at tile 1 (oracle"
           f" {ex_kept[1][1]}, {ex_flips[1]} flips); {resids[0]} uncovered fixed up; agreement with the"
           f" fast chain {agree} %; launches {ex_launches}")
@@ -533,8 +644,10 @@ def main() -> int:
         # kernel 4 against its plain version on the grids the op built
         check(len(grids) == op_launches, f"{what}: {len(grids)} column grids, {op_launches} launches")
         for xyz_, count_, cell_, k_, kw in grids:
-            g_planes = cols_knn._cols_build(xyz_, count_, cell_, gy=kw["gy"], gz=kw["gz"], cap=kw["cap"],
-                                            chunk=CHUNK, vmin_override=kw["vmin_override"])[:3]
+            g_xs, g_ys, g_zs, _orig, _valid, _drop, _slot = cols_knn._cols_build(
+                xyz_, count_, cell_, gy=kw["gy"], gz=kw["gz"], cap=kw["cap"], chunk=CHUNK,
+                vmin_override=kw["vmin_override"], want_orig=False)
+            g_planes = (g_xs, g_ys, g_zs)
             select_case(g_planes, cell_, f"{what}, grid {kw['gy']} x {kw['gz']} x {kw['cap']}", k_,
                         kw["gy"], kw["gz"], kw["cap"])
         print(f"{card} phase 6: cwipc_remove_outliers(perTile={per_tile}) on {len(arr)} points kept"
@@ -544,7 +657,7 @@ def main() -> int:
         clean.free()
     for p_ in (pc, down):
         p_.free()
-    print(f"{card} phase 6 ok")
+    print(f"{card} phase 6 ok {lap()}")
 
     # ---- phase 7: times of the exact chain and of kernel 4 ----------------
     ex_ms = time_ms(lambda: exact(0), reps=10, warm=2)
@@ -552,7 +665,8 @@ def main() -> int:
           f" {HSTEPS * HSTEPS / (ex_ms / 1e3)} points/s")
     ex_stages = {
         "downsample": lambda: voxelize.downsample_cm(buf, CELL, EX_OCAP),
-        "build": lambda: cols_knn._cols_build(ex_xyz, ex_cnt, CELL, gy=GY, gz=GZ, cap=GCAP, chunk=CHUNK),
+        "build": lambda: cols_knn._cols_build(ex_xyz, ex_cnt, CELL, gy=GY, gz=GZ, cap=GCAP, chunk=CHUNK,
+                                              want_orig=False),
         "select (kernel 4)": lambda: cols_select(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP),
         "finish": lambda: cols_knn._cols_finish(sel, sel_kth, point_slot, ex_valid, drop_ring, CELL,
                                                 k=K, gy=GY, gz=GZ, cap=GCAP),
@@ -572,19 +686,437 @@ def main() -> int:
     p1, k1, k2, p2 = (time_ms(k4_plain, reps=3, warm=1), time_ms(k4_kernel), time_ms(k4_kernel),
                       time_ms(k4_plain, reps=3, warm=1))
     kms, pms = statistics.median([k1, k2]), statistics.median([p1, p2])
-    print(f"{card} kernel cols_select: {kms} ms (runs {k1}, {k2}); plain PyTorch {pms} ms (runs {p1}, {p2})")
+    from cwipc_util_tpu_torch.ops.nn_select import (
+        INT32_MAX,
+        nn_select,
+        nn_select_plain,
+        ring_offsets,
+    )
+
+    def ring_pairs(q_x, r_x, gz, gyz):
+        """(query slot, candidate slot) pairs the 77-column ring holds in
+        this run's planes: the work a ring kernel must do."""
+        off = 4 * gz + 4
+        occ_q = (q_x[off:off + gyz] < F32_MAX / 2).sum(1).double()
+        occ_r = (r_x < F32_MAX / 2).sum(1).double()
+        ring = sum(occ_r[off + o:off + o + gyz] for o in ring_offsets(gz))
+        return float((occ_q * ring).sum())
+
+    def ring_bytes(planes_r, planes_q, gz, gyz, outs):
+        """Bytes a ring kernel must move in this run: the reference x plane
+        over the rows the rings reach (x alone marks a slot occupied: an
+        empty slot holds F32_MAX), y and z of its occupied slots only; the
+        query x plane over the grid's rows and y and z of its occupied
+        slots (planes_q None: the reference is its own query); the outputs
+        once."""
+        off = 4 * gz + 4
+        r_x = planes_r[0][:gyz + 2 * off]
+        nbytes = tensor_bytes(r_x, *outs) + 8 * int((r_x < F32_MAX / 2).sum())
+        if planes_q is not None:
+            q_x = planes_q[0][off:off + gyz]
+            nbytes += tensor_bytes(q_x) + 8 * int((q_x < F32_MAX / 2).sum())
+        return nbytes
+
+    # kernel 4: 8 flops of d2 per (query, candidate) pair of the ring
+    k4_pairs = ring_pairs(ex_planes[0], ex_planes[0], GZ, GY * GZ)
+    k4_bytes = ring_bytes(ex_planes, None, GZ, GY * GZ, (sel, sel_kth))
+    k4_bms, k4_bby = bound(k4_bytes, 8 * k4_pairs)
+    print(f"{card} kernel cols_select: {kms} ms (runs {k1}, {k2}); plain PyTorch {pms} ms (runs {p1}, {p2});"
+          f" bound {k4_bms} ms ({k4_bby}: {k4_bytes} bytes, {k4_pairs} ring pairs); no one PyTorch call"
+          f" computes it")
     record.append({
         "name": "cols_select", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/cols_select.cu",
         "replaces": "cwipc_util_tpu/ops/pallas_cols_select.py:502", "launches": ex_launches["cols_select"],
-        "max_abs_err": k4_err, "ms": kms, "plain_ms": pms,
+        "max_abs_err": k4_err, "ms": kms, "plain_ms": pms, "bound_ms": k4_bms, "bound_by": k4_bby,
+        "library_ms": None,
     })
-    print(f"{card} phase 7 ok")
+    print(f"{card} phase 7 ok {lap()}")
+
+    # ---- phase 8: kernel 5 against its plain version at edge cases --------
+    from cwipc_util_tpu_torch.filters.noise import NoiseFilter
+    from cwipc_util_tpu_torch.filters.simulatecams import SimulatecamsFilter
+    from cwipc_util_tpu_torch.ops import knn
+    from cwipc_util_tpu_torch.registration import analyze, fine, multicamera
+    from cwipc_util_tpu_torch.registration.util import cwipc_transform, transformation_compare
+
+    k5_err = [0.0]
+
+    def nn_case(planes_r, planes_q, gy, gz, cap_r, cap_q, what):
+        """Kernel 5 and its plain version on the same planes: d2 bit-equal,
+        ids equal, empty query slots at (F32_MAX, INT32_MAX)."""
+        got = nn_select(*planes_r, *planes_q, gy=gy, gz=gz, cap_r=cap_r, cap_q=cap_q)
+        want = nn_select_plain(*planes_r, *planes_q, gy=gy, gz=gz, cap_r=cap_r, cap_q=cap_q)
+        torch.cuda.synchronize()
+        check(same_bits(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"kernel 5 ({what}): differs from its plain version: {int((got[1] != want[1]).sum())} ids,"
+              f" max abs d2 {maxabs(got[0], want[0])}")
+        off = 4 * gz + 4
+        empty = planes_q[0][off:off + gy * gz] >= F32_MAX / 2
+        check(bool((got[0][empty] == F32_MAX).all()) and bool((got[1][empty] == INT32_MAX).all()),
+              f"kernel 5 ({what}): empty query slots must read (F32_MAX, INT32_MAX)")
+        k5_err[0] = max(k5_err[0], maxabs(got[0], want[0]))
+        return got, empty
+
+    def grid_planes(points, cell, gy, gz, cap):
+        n = len(points)
+        pts = np.zeros((max(1024, 1 << int(np.ceil(np.log2(max(n, 2))))), 3), np.float32)
+        pts[:n] = points
+        xs, ys, zs, _orig, _valid, _drop, _slot = cols_knn._cols_build(
+            t(pts), i32(n), cell, gy=gy, gz=gz, cap=cap, chunk=CHUNK, vmin_override=[0, 0, 0],
+            want_orig=False)
+        return xs, ys, zs
+
+    def box(n, lo, hi):
+        return (np.float32(lo) + gen.random((n, 3), dtype=np.float32) * np.float32(np.subtract(hi, lo))).astype(
+            np.float32)
+
+    cell = 0.02
+    cases = {
+        "count 0": (np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32), 24, 24, 16, 8),
+        "fewer reference points than a ring holds": (box(5, 0.1, 0.2), box(300, 0.0, 0.4), 24, 24, 8, 16),
+        "columns at cap 128, rings past one stage": (box(8000, 0.05, [0.35, 0.17, 0.17]),
+                                                     box(3000, 0.05, [0.35, 0.17, 0.17]), 16, 16, 128, 128),
+        "cap_r 13, cap_q 5": (box(900, 0.05, 0.4), box(700, 0.05, 0.4), 32, 32, 13, 5),
+        "queries with empty rings": (box(400, 0.0, [0.5, 0.1, 0.1]), box(400, [0.0, 0.3, 0.3], 0.5), 32, 32, 16, 16),
+        "a dropped column": (np.concatenate([box(300, 0.05, 0.3), np.float32([0.1, 0.101, 0.101])
+                                             + box(200, 0.0, [0.3, 0.005, 0.005])]),
+                             box(500, 0.05, 0.3), 24, 24, 24, 24),
+    }
+    h = cell / 2  # an exact lattice and queries at cell centres: ties of 8
+    lat = np.stack(np.meshgrid(*(np.arange(1, 13),) * 3, indexing="ij"), -1).reshape(-1, 3) * h
+    cases["an exact lattice with tied distances"] = (lat.astype(np.float32), (lat[:800] + h / 2).astype(np.float32),
+                                                     16, 16, 24, 24)
+    for what, (r_pts, q_pts, gy_, gz_, cap_r, cap_q) in cases.items():
+        (_, cid_), empty = nn_case(grid_planes(r_pts, cell, gy_, gz_, cap_r), grid_planes(q_pts, cell, gy_, gz_, cap_q),
+                                   gy_, gz_, cap_r, cap_q, what)
+        n_hit = int((cid_ != INT32_MAX).sum())
+        if what == "queries with empty rings":
+            check(n_hit == 0 and int((~empty).sum()) > 0, "kernel 5: rings out of reach must find nothing")
+        if what == "an exact lattice with tied distances":
+            check(n_hit == 800, "kernel 5: every lattice query must find a neighbour")
+        print(f"{card} phase 8: kernel 5 equal to its plain version, {what}: {int((~empty).sum())} queries,"
+              f" {n_hit} with a candidate")
+    print(f"{card} phase 8 ok {lap()}")
+
+    # ---- phase 9: multi-camera registration, the 3-camera 30k flow ----------
+    def tiled_scene():
+        body = port.cwipc_synthetic(0, REG_N, device=dev)
+        body.start()
+        pc = body.get()
+        body.stop()
+        pc = SimulatecamsFilter(3, hard=False, seed=REG_SEED).filter(pc)
+        pc = NoiseFilter(REG_NOISE, seed=REG_SEED + 1).filter(pc)
+        parts = [cwipc_transform(port.cwipc_tilefilter(pc, 1 << cam),
+                                 perturbation(REG_SEED + cam, REG_TRANSLATION, REG_ROTATION)) for cam in range(3)]
+        return port.cwipc_join_multi(parts)
+
+    def modes(pc):
+        """The register script's check_alignment: each camera's tile against
+        all the other tiles, mode correspondence."""
+        out = []
+        for cam in range(3):
+            an = analyze.RegistrationAnalyzerSymmetric()
+            an.set_source_pointcloud(pc, 1 << cam)
+            an.set_reference_pointcloud(pc, 255 - (1 << cam))
+            an.set_correspondence_measure("mode")
+            an.run()
+            out.append(an.get_results().minCorrespondence)
+        return out
+
+    # record, without changing them: every reference/query grid pair kernel 5
+    # sees, every compaction kernel 3 does, the aligners' ICP runs and their
+    # grid choices
+    nn_grids, compactions = [], []
+    real_select, real_icp, real_params = knn.nn_select, fine._icp_fused, fine.nn_grid_params
+    real_compact = compaction.compact_kernel_cm
+
+    def recording_select(*planes, **kw):
+        nn_grids.append((planes, kw))
+        return real_select(*planes, **kw)
+
+    def recording_compact(*args):
+        compactions.append(args)
+        return real_compact(*args)
+
+    icp_runs, grid_choices = [], []
+
+    def recording_icp(*args, **kw):
+        torch.cuda.synchronize()
+        n0, t_0 = nn_select.launches, time.perf_counter()
+        T = real_icp(*args, **kw)
+        torch.cuda.synchronize()
+        icp_runs.append({"args": args, "kw": kw, "s": time.perf_counter() - t_0,
+                         "launches": nn_select.launches - n0})
+        return T
+
+    def recording_params(src_np, ref_np, maxd, **kw):
+        g = real_params(src_np, ref_np, maxd, **kw)
+        grid_choices.append((len(src_np), len(ref_np), maxd, g))
+        return g
+
+    def recording(on):
+        knn.nn_select = recording_select if on else real_select
+        fine._icp_fused = recording_icp if on else real_icp
+        fine.nn_grid_params = recording_params if on else real_params
+        compaction.compact_kernel_cm = recording_compact if on else real_compact
+
+    scene = tiled_scene()
+    n_scene = scene.count()
+    torch.cuda.synchronize()
+    t_0 = time.perf_counter()
+    before = modes(scene)
+    check_s = {"alignment analysis before": time.perf_counter() - t_0}
+    algo = multicamera.MultiCameraIterative()
+    algo.set_tiled_pointcloud(scene)
+    flow_stages = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t_0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            flow_stages[name] = flow_stages.get(name, 0.0) + time.perf_counter() - t_0
+            return out
+        return run
+
+    algo._pre_analyse = timed("pre-analysis", algo._pre_analyse)
+    algo._post_analyse = timed("post-analysis", algo._post_analyse)
+    reg_kernels = all_kernels + (nn_select,)
+    recording(True)
+    torch.cuda.synchronize()
+    for f in reg_kernels:
+        f.launches = 0
+    t_flow = time.perf_counter()
+    try:
+        ok = algo.run()
+        torch.cuda.synchronize()
+    finally:
+        recording(False)
+    flow_s = time.perf_counter() - t_flow
+    reg_launches = {f.__name__: f.launches for f in reg_kernels}
+    flow_stages["iterative fine alignment"] = flow_s - sum(flow_stages.values())
+    check(ok, "MultiCameraIterative.run() failed")
+    check(reg_launches["nn_select"] >= 1 and reg_launches["compact_kernel_cm"] >= 1,
+          f"a kernel of the registration path was not launched: {reg_launches}")
+    check(icp_runs and all(r["launches"] >= 1 for r in icp_runs),
+          f"kernel 5 must run in every aligner run: {[r['launches'] for r in icp_runs]}")
+    two_scale = [g[:3] for g in grid_choices if g[3] is None]
+    if two_scale:
+        print(f"{card} phase 9: aligner runs on the two-scale search (no grid fits): {two_scale}")
+    t_0 = time.perf_counter()
+    after_pc = algo.get_result_pointcloud_full()
+    after = modes(after_pc)
+    torch.cuda.synchronize()
+    check_s["alignment analysis after"] = time.perf_counter() - t_0
+    check(after_pc.count() == n_scene, "the registered cloud lost points")
+    check(max(after) < 0.006 and max(after) < max(before) / 3,
+          f"registration did not reach the noise floor: worst mode correspondence {max(before)} -> {max(after)}")
+    flow_grids = list(nn_grids)
+    flow_compactions = list(compactions)
+    check(len(flow_compactions) == reg_launches["compact_kernel_cm"],
+          f"{len(flow_compactions)} compactions recorded, {reg_launches['compact_kernel_cm']} launches")
+    flow_icp = list(icp_runs)
+    print(f"{card} phase 9: MultiCameraIterative on {n_scene} points in {flow_s} s"
+          f" (stages {flow_stages}); mode correspondence per camera {before} -> {after}; report:"
+          f" {algo.report_change()!r}; launches {reg_launches}; aligner runs"
+          f" {[(r['kw']['grid'], r['launches'], r['s']) for r in icp_runs]}; two-scale aligner runs {len(two_scale)}")
+
+    def oracle_nn(src_xyz, sn, ref_xyz, rn, maxd, what):
+        """The grid NN (nn_search_host_auto on CUDA) against a float64
+        cKDTree: no correspondence exactly where the oracle's nearest lies
+        beyond maxd (but within 1e-6 * maxd of it), distances within 1e-6
+        relative, an index at that distance.  Then the two-scale search on
+        the same pair: every match it reports is genuine and no nearer
+        than the oracle's; how many it misses is printed."""
+        n0 = nn_select.launches
+        d, i = knn.nn_search_host_auto(src_xyz, sn, ref_xyz, rn, maxd)
+        torch.cuda.synchronize()
+        check(nn_select.launches > n0, f"{what}: the grid NN did not launch kernel 5")
+        s64 = src_xyz[:sn].double().cpu().numpy()
+        r64 = ref_xyz[:rn].double().cpu().numpy()
+        d64, _ = cKDTree(r64).query(s64, workers=-1)
+        maxd32 = float(np.float32(maxd))
+        near = np.abs(d64 - maxd32) <= 1e-6 * maxd32
+        for name, (dd, ii) in (("grid", (d, i)), ("two-scale", knn.nn_search(src_xyz, sn, ref_xyz, rn, maxd))):
+            dd, ii = dd[:sn].cpu().numpy().astype(np.float64), ii[:sn].cpu().numpy()
+            hit = np.isfinite(dd)
+            named = np.sqrt(((r64[np.maximum(ii, 0)] - s64) ** 2).sum(1))
+            check(np.all(~hit | (np.abs(named - dd) <= 1e-6 * np.maximum(named, 1e-30))),
+                  f"{what}, {name}: a match is not at the distance it reports")
+            exact = hit & (np.abs(dd - d64) <= 1e-6 * np.maximum(d64, 1e-30))
+            if name == "grid":
+                check(np.all((hit == (d64 <= maxd32)) | near), f"{what}: the grid NN's hit set differs from the oracle's")
+                check(np.all(exact | ~hit), f"{what}: grid distances differ from the oracle's by more than 1e-6")
+            else:
+                check(np.all(~hit | (dd >= d64 * (1 - 1e-6))), f"{what}: two-scale is nearer than the oracle")
+            print(f"{card} NN oracle, {what}, {name}: {sn} queries, {int(hit.sum())} matches"
+                  f" (oracle {int((d64 <= maxd32).sum())}), {int(exact.sum())} exact")
+
+    for r in icp_runs:
+        src0, s_count, ref_xyz, r_count, corr = r["args"][:5]
+        oracle_nn(src0, int(s_count), ref_xyz, int(r_count), corr, f"aligner pair {int(s_count)} -> {int(r_count)}")
+    for planes, kw in flow_grids:
+        nn_case(planes[:3], planes[3:], kw["gy"], kw["gz"], kw["cap_r"], kw["cap_q"], f"flow grid {kw}")
+    for args in flow_compactions:
+        compact_case(*args)
+    print(f"{card} phase 9 ok {lap()}: kernel 5 equal to its plain version on all {len(flow_grids)}"
+          f" reference/query grid pairs of the flow; kernel 3 bit-equal to its plain version on all"
+          f" {len(flow_compactions)} compactions of the flow, at capacities"
+          f" {sorted({int(a[0].shape[0]) for a in flow_compactions})}")
+
+    # ---- phase 10: the 160k pair: NN, one GICP run, one analyzer query ------
+    whole = port.cwipc_synthetic(0, PAIR_N, device=dev)
+    whole.start()
+    body_pc = whole.get()
+    whole.stop()
+    P = perturbation(REG_SEED, REG_TRANSLATION, REG_ROTATION)
+    ref_pc = NoiseFilter(REG_NOISE, seed=REG_SEED + 1).filter(body_pc)
+    mov_pc = NoiseFilter(REG_NOISE, seed=REG_SEED + 2).filter(cwipc_transform(body_pc, P))
+    rb, sb = ref_pc._access_buffer(), mov_pc._access_buffer()
+    n_ref, n_mov = ref_pc.count(), mov_pc.count()
+    nn_grids.clear()
+    recording(True)
+    try:
+        oracle_nn(sb.xyz, n_mov, rb.xyz, n_ref, PAIR_MAXD, f"{n_mov}-point pair")
+        al = fine.RegistrationComputer_ICP_Generalized()
+        al.set_source_pointcloud(mov_pc)
+        al.set_reference_pointcloud(ref_pc)
+        al.set_correspondence(PAIR_MAXD)
+        icp_runs.clear()
+        check(al.run(), "GICP on the 160k pair failed")
+        T_kernel = al.get_result_transformation()
+        gicp = icp_runs[-1]
+        check(gicp["launches"] >= 1 and gicp["kw"]["grid"] is not None, "the 160k GICP did not run on kernel 5")
+        # the same run through the plain version on the card: on CPU tensors
+        # the plain version takes minutes an iteration at this size
+        knn.nn_select = nn_select_plain
+        torch.cuda.synchronize()
+        t_0 = time.perf_counter()
+        T_plain = real_icp(*gicp["args"], **gicp["kw"]).cpu().numpy().astype(np.float64)
+        gicp_plain_s = time.perf_counter() - t_0
+        knn.nn_select = recording_select
+        an = analyze.RegistrationAnalyzerSymmetric()
+        an.set_source_pointcloud(mov_pc)
+        an.set_reference_pointcloud(ref_pc)
+        an.set_max_correspondence_distance(PAIR_MAXD)
+        n0 = nn_select.launches
+        torch.cuda.synchronize()
+        t_0 = time.perf_counter()
+        an.run()
+        an_s = time.perf_counter() - t_0
+        check(nn_select.launches > n0, "the 160k analyzer query did not launch kernel 5")
+    finally:
+        recording(False)
+    pair_grids = list(nn_grids)
+    res = {}
+    for name, T in (("kernel", T_kernel), ("plain", T_plain)):
+        res[name] = transformation_compare(T @ P, np.identity(4))
+        check(res[name][0] < 0.004 and res[name][1] < 0.02,
+              f"the 160k GICP on the {name} version missed the perturbation by {res[name]}")
+    drift = transformation_compare(T_kernel, T_plain)
+    check(drift[0] < 1e-3 and drift[1] < 5e-3, f"the 160k GICP: kernel and plain poses differ by {drift}")
+    for planes, kw in pair_grids:
+        nn_case(planes[:3], planes[3:], kw["gy"], kw["gz"], kw["cap_r"], kw["cap_q"], f"160k grid {kw}")
+    print(f"{card} phase 10: kernel 5 equal to its plain version on all {len(pair_grids)} grid pairs of the"
+          f" 160k pair; GICP on {n_mov} -> {n_ref} points, grid {gicp['kw']['grid']}: residual against the"
+          f" perturbation (m, rad) kernel {res['kernel']}, plain {res['plain']}; kernel vs plain {drift};"
+          f" {gicp['s']} s on kernel 5, {gicp_plain_s} s on its plain version; analyzer query"
+          f" {an.get_results().minCorrespondence} in {an_s} s")
+    print(f"{card} phase 10 ok {lap()}")
+
+    # ---- phase 11: times of the registration path ----------------------------
+    def host_s(fn, reps=3):
+        """Median host seconds of fn ending in a synchronize."""
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t_0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t_0)
+        return statistics.median(out)
+
+    first_icp = flow_icp[0]
+    icp30_s = host_s(lambda: real_icp(*first_icp["args"], **first_icp["kw"]))
+    icp160_s = host_s(lambda: real_icp(*gicp["args"], **gicp["kw"]), reps=1)
+    print(f"{card} flow: MultiCameraIterative {flow_s} s; stages {flow_stages};"
+          f" the register script's analyses {check_s}")
+    print(f"{card} ICP (_icp_fused, GICP, kernel 5): {icp30_s} s at {int(first_icp['args'][1])} points,"
+          f" {icp160_s} s at {n_mov} points")
+
+    # the grid query's parts on the 160k pair, at the pair's initial pose
+    perm, gy_, gz_, cap_r, cap_q = gicp["kw"]["grid"]
+    vmin = gicp["args"][9]
+    pidx = list(perm)
+    cell_g = knn.grid_cell(PAIR_MAXD)
+    src_p, ref_p = sb.xyz[:, pidx], rb.xyz[:, pidx]
+    prep = knn.nn_grid_prepare(ref_p, rb.count, cell_g, gy=gy_, gz=gz_, cap=cap_r, vmin=vmin)
+    geo = dict(gy=gy_, gz=gz_, cap_r=cap_r, cap_q=cap_q)
+
+    def q_build():
+        return cols_knn._cols_build(src_p, sb.count, cell_g, gy=gy_, gz=gz_, cap=cap_q, chunk=256,
+                                    vmin_override=vmin)
+
+    q_xs, q_ys, q_zs, q_orig, *_ = q_build()
+
+    def k5_pair():
+        return nn_select(*prep[:3], q_xs, q_ys, q_zs, **geo)
+
+    d2m, cidm = k5_pair()
+
+    def decode():
+        return knn._nn_grid_decode(d2m, cidm, prep[3], prep[4], q_orig, sb.xyz.shape[0], sb.count, PAIR_MAXD, **geo)
+
+    fix = decode()[2]
+
+    def fixup():
+        return knn.bruteforce_nn_subset(sb.xyz, sb.count, fix, rb.xyz, rb.count, PAIR_MAXD)
+
+    def grid_query():
+        d, i, f = knn.nn_grid_query(src_p, sb.count, prep, cell_g, PAIR_MAXD, vmin=vmin, **geo)
+        return knn.bruteforce_nn_subset(sb.xyz, sb.count, f, rb.xyz, rb.count, PAIR_MAXD)
+
+    n_fix = int(fix.sum())
+    q_parts = {"query grid build": q_build, "kernel 5": k5_pair, "decode": decode,
+               f"fixup ({n_fix} queries)": fixup, "whole query with fixup": grid_query}
+    for name, fn in q_parts.items():
+        print(f"{card} grid query at {n_mov} points, grid {(perm, gy_, gz_, cap_r, cap_q)}, {name}:"
+              f" median {time_ms(fn, reps=10, warm=2)} ms")
+    print(f"{card} NN search at {n_mov} points: grid (nn_search_host_auto) {host_s(lambda: knn.nn_search_host_auto(sb.xyz, sb.count, rb.xyz, rb.count, PAIR_MAXD))} s,"
+          f" two-scale (nn_search) {host_s(lambda: knn.nn_search(sb.xyz, sb.count, rb.xyz, rb.count, PAIR_MAXD))} s")
+
+    # kernel 5 against its plain version on the flow's largest grid, in turns
+    planes, kw = max(flow_grids, key=lambda rec: rec[1]["gy"] * rec[1]["gz"] * rec[1]["cap_r"] * rec[1]["cap_q"])
+
+    def k5_kernel():
+        return nn_select(*planes, **kw)
+
+    def k5_plain():
+        return nn_select_plain(*planes, **kw)
+
+    p1, k1, k2, p2 = (time_ms(k5_plain, reps=3, warm=1), time_ms(k5_kernel), time_ms(k5_kernel),
+                      time_ms(k5_plain, reps=3, warm=1))
+    kms, pms = statistics.median([k1, k2]), statistics.median([p1, p2])
+    # 8 flops of d2 per (query, candidate) pair of the ring
+    k5_pairs = ring_pairs(planes[3], planes[0], kw["gz"], kw["gy"] * kw["gz"])
+    k5_bytes = ring_bytes(planes[:3], planes[3:], kw["gz"], kw["gy"] * kw["gz"], k5_kernel())
+    k5_bms, k5_bby = bound(k5_bytes, 8 * k5_pairs)
+    print(f"{card} kernel nn_select on the flow's largest grid {kw}: {kms} ms (runs {k1}, {k2}); plain PyTorch"
+          f" {pms} ms (runs {p1}, {p2}); bound {k5_bms} ms ({k5_bby}: {k5_bytes} bytes, {k5_pairs} ring pairs);"
+          f" no one PyTorch call computes it (torch.cdist + min is two calls over all pairs)")
+    record.append({
+        "name": "nn_select", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/nn_select.cu",
+        "replaces": "cwipc_util_tpu/ops/pallas_nn.py:246", "launches": reg_launches["nn_select"],
+        "max_abs_err": k5_err[0], "ms": kms, "plain_ms": pms, "bound_ms": k5_bms, "bound_by": k5_bby,
+        "library_ms": None,
+    })
+    print(f"{card} phase 11 ok {lap()}")
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

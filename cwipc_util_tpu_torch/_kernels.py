@@ -57,6 +57,8 @@ _SIGNATURES = {
     "cwipc_compact": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # xs, ys, zs, cap, gz, k, row0, nrows, sums, kth, stream
     "cwipc_cols_select": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # rx, ry, rz, qx, qy, qz, cap_r, cap_q, gz, gyz, d2, cid, stream
+    "cwipc_nn_select": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

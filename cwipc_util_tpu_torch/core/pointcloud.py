@@ -166,7 +166,8 @@ class cwipc_pointcloud_wrapper:
             _track_alloc()
 
     def __del__(self):
-        if getattr(self, "_owned", False):
+        # at interpreter exit the module's globals may already be gone
+        if getattr(self, "_owned", False) and _track_dealloc is not None:
             self.free()
 
     # -- ownership protocol (python/cwipc/util.py:599-628) ----------------

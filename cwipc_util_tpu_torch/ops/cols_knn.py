@@ -66,15 +66,16 @@ def plane_rows(gy: int, gz: int, chunk: int) -> int:
     return halo(gz) + -(-gy * gz // chunk) * chunk + halo(gz)
 
 
-def _cols_build(xyz, count, cell, *, gy, gz, cap, chunk, vmin_override=None):
+def _cols_build(xyz, count, cell, *, gy, gz, cap, chunk, vmin_override=None, want_orig=True):
     """Phase 1: slot-grid construction.
 
-    Returns (xs_g, ys_g, zs_g, valid, drop_ring, point_slot): the padded
-    [prows, cap] coordinate planes (F32_MAX in empty slots), the valid
-    mask, the per-column "a dropped point is within reach" flags [gy*gz]
-    and the point -> slot map (gy*gz*cap for dropped points).  The JAX
-    module's slot -> point map (``want_orig``), which only its NN callers
-    read, is not ported.
+    Returns (xs_g, ys_g, zs_g, slot_orig, valid, drop_ring, point_slot),
+    the JAX module's order: the padded [prows, cap] coordinate planes
+    (F32_MAX in empty slots), the slot -> point map [gy*gz*cap] (-1 in
+    empty slots; None with ``want_orig=False``: only the NN callers in
+    ops/knn.py read it), the valid mask, the per-column "a dropped point is
+    within reach" flags [gy*gz] and the point -> slot map (gy*gz*cap for
+    dropped points).
 
     ``vmin_override`` ([3] int, absolute cell coordinates) anchors the grid
     explicitly; points below it, or beyond the extents, are out of grid and
@@ -128,6 +129,12 @@ def _cols_build(xyz, count, cell, *, gy, gz, cap, chunk, vmin_override=None):
     point_slot[torch.where(fits, sidx, n).long()] = torch.where(fits, addr, slots)
     point_slot = point_slot[:n]
 
+    slot_orig = None
+    if want_orig:
+        slot_orig = torch.full((slots + 1,), -1, dtype=torch.int32, device=dev)
+        slot_orig[addr.long()] = torch.where(fits, sidx, -1)
+        slot_orig = slot_orig[:slots]
+
     # A DROPPED point (column capacity or grid-extent overflow) is absent
     # from its neighbours' candidate sets, so every query within reach of
     # a drop is recomputed.  Rank overflows flag their true column; extent
@@ -152,7 +159,7 @@ def _cols_build(xyz, count, cell, *, gy, gz, cap, chunk, vmin_override=None):
     for j in range(1, 2 * _M + 1):
         f = f | torch.roll(base, j, 1) | torch.roll(base, -j, 1)
     drop_ring = f.reshape(gyz)
-    return xs_g, ys_g, zs_g, valid, drop_ring, point_slot
+    return xs_g, ys_g, zs_g, slot_orig, valid, drop_ring, point_slot
 
 
 def _cols_select(xs_g, ys_g, zs_g, c0s, *, k, gy, gz, cap, chunk, voxel_unique):
@@ -235,8 +242,9 @@ def cols_knn_mean_distance(
     version's per-column pre-selection."""
     from .cols_select import cols_select  # cols_select imports this module
 
-    xs_g, ys_g, zs_g, valid, drop_ring, point_slot = _cols_build(
+    xs_g, ys_g, zs_g, _, valid, drop_ring, point_slot = _cols_build(
         xyz, count, cell, gy=gy, gz=gz, cap=cap, chunk=chunk, vmin_override=vmin_override,
+        want_orig=False,
     )
     sums, kths = cols_select(
         xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, chunk=chunk, voxel_unique=voxel_unique,

@@ -149,9 +149,13 @@ def _imported_modules(path):
 
 
 def test_package_imports_no_jax():
-    """No module of the port imports jax or the JAX package."""
+    """No module of the port, nor chip_smoke.py, imports jax or the JAX
+    package; the walk covers every subpackage, registration/ and filters/
+    included."""
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
+    assert {"core", "ops", "filters", "registration", "utils"} <= {p.parent.name for p in files}
+    files.append(PKG.parent / "chip_smoke.py")
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]

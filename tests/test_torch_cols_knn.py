@@ -1,8 +1,8 @@
 """Column-grid exact kNN parity: the port's ops/cols_knn.py and the host
 grid heuristic against the JAX package, on seeded numpy clouds.
 
-* ``_cols_build`` on a voxel-unique cloud: planes, point_slot and
-  drop_ring bit-equal (the sort keys are unique, so the stable torch
+* ``_cols_build`` on a voxel-unique cloud: planes, slot_orig, point_slot
+  and drop_ring bit-equal (the sort keys are unique, so the stable torch
   sort and lax.sort order the slots alike).
 * With column-cap drops and out-of-grid points: drop_ring equal (which of
   two tied points a column drops may differ; the flagged column cannot).
@@ -53,8 +53,7 @@ def _build_both(xyz, n, cell, vmin=None, **geo):
                           vmin_override=None if vmin is None else jnp.asarray(vmin, jnp.int32), **geo)
     p = cols_knn._cols_build(torch.from_numpy(xyz), torch.tensor(n, dtype=torch.int32), cell,
                              chunk=CHUNK, vmin_override=vmin, **geo)
-    # the JAX tuple also holds slot_orig (index 3), which the port omits
-    return [np.asarray(a) for a in j[:3] + j[4:]], [a.numpy() for a in p]
+    return [np.asarray(a) for a in j], [a.numpy() for a in p]
 
 
 def test_build_bit_equal_on_voxel_unique_cloud():
@@ -63,9 +62,10 @@ def test_build_bit_equal_on_voxel_unique_cloud():
     for a, b in zip(j[:3], p[:3]):
         assert a.shape == b.shape
         np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
-    for i in (3, 4, 5):  # valid, drop_ring, point_slot
+    for i in (3, 4, 5, 6):  # slot_orig, valid, drop_ring, point_slot
         np.testing.assert_array_equal(j[i], p[i])
-    assert not p[4].any() and (p[5][:n] < 32 * 24 * 28).all()
+    assert not p[5].any() and (p[6][:n] < 32 * 24 * 28).all()
+    assert np.array_equal(np.sort(p[3][p[3] >= 0]), np.arange(n))
 
 
 @pytest.mark.parametrize("cap,vmin", [(1, None), (8, [2, 10, 5]), (1, [-1, 5, 4])])
@@ -75,8 +75,8 @@ def test_build_drop_ring_with_drops(cap, vmin):
     origin into the cloud)."""
     xyz, n = _random(900, 17, spread=0.9)
     j, p = _build_both(xyz, n, 0.02, vmin=vmin, gy=64, gz=64, cap=cap)
-    assert j[4].any() and 0 < p[4].sum() < p[4].size
-    np.testing.assert_array_equal(j[4], p[4])
+    assert j[5].any() and 0 < p[5].sum() < p[5].size
+    np.testing.assert_array_equal(j[5], p[5])
 
 
 def _md_both(xyz, n, cell, k, vu, **geo):
