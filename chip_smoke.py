@@ -52,14 +52,39 @@ phases that each stop the run at the first failure:
    0.02 rad and agree within 1 mm and 5e-3 rad), one analyzer query;
 11. times: the flow and its phases, one ICP run at 30k and 160k points,
    the grid query's parts, kernel 5 next to its plain version, the grid
-   search next to the two-scale search.
+   search next to the two-scale search;
+12. kernel 6 (the key+payload sort) against its plain version: keys
+   bit-equal and each key's payload tuples equal, at 72 edge cases (all
+   keys equal, sorted, reversed, negative, sentinels; n 8192, 1<<15,
+   1<<20; 0-3 payloads) and on the fast chain's own 1,048,576 sort
+   operands, whose kernel-6 order fed to kernel 1 and the centroids gives
+   the fast downsample's 217,570 voxels bit for bit;
+13. kernel 7 (the scan probe) bit-equal to its plain version in all five
+   forms at S 1536, T 64, 64 tiles, on sel_roofline.py's inputs;
+14. the ops and filter path: cwipc_downsample of the bench cloud at 1 mm
+   (~2,000 cells) and of 1M points over 200 m at 5 mm (40,000 cells), both
+   on the exact-key path, against a numpy oracle; the grid outlier method on the
+   217,570 voxels (cell 12 mm, cap 32, k 12) against a float64 cKDTree
+   oracle wherever the k-th neighbour lies within one cell; the KD-tree
+   route of cwipc_remove_outliers on a cloud no column grid fits; one 1M
+   frame through filters.factory (voxelize, remove_outliers, crop,
+   transform44, colorize, analyze), each stage against a numpy or cKDTree
+   oracle, with kernels 1, 3 and 4 launched;
+15. times: kernel 6 next to its plain version and torch.sort + gathers,
+   kernel 7 per form in element-steps/s, kernel 4's scan yardstick, the
+   exact-key downsamples, the grid method and the filter frame.
 
 Each phase line ends with the wall seconds the phase took.  The kernels
 line gives, per kernel, its time, its plain version's, its bound (the
-larger of its bytes over 3.35 TB/s and its float32 operations over
-67 TFLOP/s, an H100 SXM's published peaks, counted from this run's
-inputs: only the rows, slots and points the function must read) and, where one PyTorch call computes the same function, that
-call's time.
+larger of its bytes over 3.35 TB/s and its operations over the peak rate:
+float32 at 67 TFLOP/s, an H100 SXM's published peaks; for kernel 7 the
+INT32 issue rate, 64 lanes x the SMs x the SM clock, or the f16 tensor
+cores' 989 TFLOP/s; counted from this run's inputs: only the rows, slots
+and points the function must read) and, where one PyTorch call computes
+the same function, that call's time.  ``launches`` is the count of the
+main path's run; kernels 6 and 7 are on no path (as in the JAX package),
+and theirs is the count of phase 12's sort -> kernel 1 run and phase 13's
+probe run.
 
 Run alone, outside a checkout, or without CUDA, it exits 2 and prints no
 result.
@@ -105,6 +130,25 @@ F32_FLOPS = 67e12
 REG_N, REG_NOISE, REG_TRANSLATION, REG_ROTATION, REG_SEED = 30000, 0.002, 0.03, 0.06, 42
 PAIR_N = 160000
 PAIR_MAXD = 0.03  # covers the pair's largest displacement (3.4 cm at 99.9 %) and fits a grid
+# kernel 6: the edge-case lengths; kernel 7: sel_roofline.py's shape (the
+# mid-tier scan: S rows, T steps, 128-column tiles)
+SORT_NS = (8192, 1 << 15, 1 << 20)
+SCAN_S, SCAN_T, SCAN_TILES = 1536, 64, 64
+# an H100's INT32 lanes per SM (times the SM count and clock for the issue
+# rate) and its dense f16 tensor-core peak (NVIDIA's data sheet)
+INT32_LANES = 64
+F16_TENSOR_FLOPS = 989e12
+K4_MAX_STEPS = 31  # kernel 4's bisection halves hi - lo < 2^31: at most 31 compare-and-count steps
+# the exact-key downsamples: the bench cloud at 1 mm (~2,000 cells) and
+# 1M uniform points over 200 m at 5 mm (40,000 cells, every voxel a singleton)
+DOWN_FINE = 0.001
+WIDE_N, WIDE_HALF, WIDE_CELL = 1_000_000, 100.0, 0.005
+# the grid method as parallel/fusion.py:40-43 runs it: cells 3 x the 4 mm voxels
+GRID_CELL, GRID_K, GRID_CAP = 3 * CELL, 12, 32
+# the KD-tree route's cloud: a 2 mm cluster and a spread over a 2 m cube
+KD_CLUSTER, KD_SPREAD, KD_SIDE = 2560, 2048, 2.0
+# the filter frame's crop: 0.8 <= y < 1.5 m of the 2 m body
+CROP = (-1.0, 1.0, 0.8, 1.5, -1.0, 1.0)
 
 
 def check(cond, what):
@@ -114,13 +158,87 @@ def check(cond, what):
 
 def bound(nbytes, flops):
     """(ms, what bounds it): the larger of the bytes over the HBM rate and
-    the float32 operations over the peak rate."""
+    the float32 operations over the peak rate (kernel 7 counts its integer
+    and tensor-core operations itself)."""
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def tensor_bytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def same_bits(a, b):
+    """Equal shapes and equal 32-bit patterns."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def time_ms(fn, reps=REPS, warm=3):
+    """Median CUDA-event milliseconds of fn over reps runs after warm ones."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_s(fn, reps=3):
+    """Median host seconds of fn ending in a synchronize."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t_0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t_0)
+    return statistics.median(out)
+
+
+def oracle(xyz64, k=K, mult=MULT):
+    """float64 cKDTree mean distances to the k nearest and the keep threshold."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    dist, _ = cKDTree(xyz64).query(xyz64, k=k + 1, workers=-1)
+    md64 = dist[:, 1:].mean(axis=1)
+    n = len(md64)
+    var = ((md64 * md64).sum() - md64.sum() ** 2 / n) / max(n - 1, 1)
+    return md64, md64.mean() + mult * np.sqrt(max(var, 0.0))
+
+
+def kept_mask(got_rows, cand_rows, what):
+    """Which candidate rows a result kept, matched by their bytes."""
+    import numpy as np
+
+    kept = {r.tobytes() for r in got_rows}
+    mask = np.array([r.tobytes() in kept for r in cand_rows], bool)
+    check(len(kept) == len(got_rows) == int(mask.sum()), f"{what}: kept rows are not rows of the input")
+    return mask
+
+
+def near_flips(mask, want, md64, thr64, what):
+    """Keep flips against the oracle; all must lie within 1e-5 * thr of
+    the threshold."""
+    import numpy as np
+
+    flip = mask != want
+    check(bool(np.all(np.abs(md64[flip] - thr64) <= 1e-5 * thr64)),
+          f"{what}: {int(flip.sum())} keep flips against the oracle, not all near the threshold")
+    return int(flip.sum())
 
 
 def perturbation(seed, max_translation, max_rotation):
@@ -141,6 +259,461 @@ def perturbation(seed, max_translation, max_rotation):
     T[:3, :3] = R
     T[:3, 3] = t
     return T
+
+
+# ---------------------------------------------------------------------------
+# phases 12-15: kernels 6 and 7, the ops and filter path, their times
+# ---------------------------------------------------------------------------
+
+
+def canonical(key, *pays):
+    """The arrays ordered by (key, payloads...): equal for two sorts exactly
+    when their keys and each key's multiset of payload tuples agree."""
+    import torch
+
+    order = torch.arange(key.shape[0], device=key.device)
+    for p in reversed(pays):
+        order = order[torch.sort(p[order], stable=True).indices]
+    order = order[torch.sort(key[order], stable=True).indices]
+    return [a[order] for a in (key, *pays)]
+
+
+def morton_np(vm):
+    """30-bit Morton keys of int64 [n, 3] coordinates in 0..1023."""
+    import numpy as np
+
+    def part(x):
+        x = x & 0x3FF
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        return (x | (x << 2)) & 0x09249249
+
+    vm = vm.astype(np.int64)
+    return (part(vm[:, 2]) << 2) | (part(vm[:, 1]) << 1) | part(vm[:, 0])
+
+
+def points_xyz(arr):
+    import numpy as np
+
+    return np.stack([arr["x"], arr["y"], arr["z"]], -1).astype(np.float32)
+
+
+def hold_downsample(got, src, cell, quantized, what):
+    """A downsample's output records against a numpy oracle of its input:
+    the voxels of floor(xyz * f32(1/cell)) in the port's order (the Morton
+    key of the rebased coordinates clamped to 10 bits, then vx, vy, vz),
+    and per voxel the integer floor of the mean colour, the OR of the tiles
+    and the float64 mean of the points.  Centroids may differ by 4 f32 ulps
+    of the largest coordinate for each point a voxel sums, and by
+    cell / 2048 where the fast path quantizes the in-voxel offsets."""
+    import numpy as np
+
+    xyz = points_xyz(src)
+    inv = np.float32(1.0) / np.float32(cell)
+    v = np.floor(xyz * inv).astype(np.int64)
+    mkey = morton_np(np.clip(v - v.min(0), 0, 1023))
+    order = np.lexsort((v[:, 2], v[:, 1], v[:, 0], mkey))
+    vs = v[order]
+    new = np.ones(len(vs), bool)
+    new[1:] = np.any(vs[1:] != vs[:-1], axis=1)
+    starts = np.flatnonzero(new)
+    counts = np.diff(np.append(starts, len(vs)))
+    check(len(got) == len(starts), f"{what}: {len(got)} voxels, the oracle {len(starts)}")
+    mean = np.add.reduceat(xyz[order].astype(np.float64), starts, axis=0) / counts[:, None]
+    s = src[order]
+    for ch in ("r", "g", "b"):
+        want = np.add.reduceat(s[ch].astype(np.int64), starts) // counts
+        check(np.array_equal(got[ch].astype(np.int64), want), f"{what}: mean {ch} differs from the oracle")
+    check(np.array_equal(got["tile"], np.bitwise_or.reduceat(s["tile"], starts)),
+          f"{what}: tile OR differs from the oracle")
+    atol = 4 * float(np.spacing(np.float32(np.abs(xyz).max()))) * int(counts.max())
+    if quantized:
+        atol += float(np.float32(cell)) / 2048
+    err = float(np.abs(points_xyz(got).astype(np.float64) - mean).max()) if len(got) else 0.0
+    check(err <= atol, f"{what}: centroids {err} from the oracle's, allowed {atol}")
+    return len(starts), int(counts.max()), err, atol
+
+
+def sort_phase(c):
+    """Phase 12: kernel 6 against its plain version, then on the fast
+    chain's own sort operands, fed to kernel 1 and the centroids."""
+    import numpy as np
+    import torch
+
+    from cwipc_util_tpu_torch.ops import voxelize
+    from cwipc_util_tpu_torch.ops.segment_reduce import segment_reduce_sorted
+    from cwipc_util_tpu_torch.ops.sort_kernel import sort_by_key, sort_by_key_plain
+
+    rng = np.random.default_rng(6)
+
+    def rand_i32(n, lo=-(2**31), hi=2**31):
+        return c.t(rng.integers(lo, hi, n, dtype=np.int64).astype(np.int32))
+
+    def case(what, key, *pays):
+        got = sort_by_key(key, *pays)
+        want = sort_by_key_plain(key, *pays)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]), f"kernel 6 ({what}): keys differ from the plain version")
+        check(all(torch.equal(a, b) for a, b in zip(canonical(*got), canonical(*want))),
+              f"kernel 6 ({what}): a key's payload tuples differ from the plain version's")
+        return got, want
+
+    ncases = 0
+    for n in SORT_NS:
+        dup = rng.integers(-(n // 16), n // 16, n).astype(np.int32)
+        dup[rng.random(n) < 0.1] = SENTINEL
+        keys = {
+            "all keys equal": torch.full((n,), 5, dtype=torch.int32, device=c.dev),
+            "already sorted": torch.arange(n, dtype=torch.int32, device=c.dev),
+            "reversed": torch.arange(n, dtype=torch.int32, device=c.dev).flip(0),
+            "negative keys": rand_i32(n, -(2**31), 0),
+            "duplicates, negative keys, 10 % sentinels": c.t(dup),
+            "full int32 range": rand_i32(n),
+        }
+        for what, key in keys.items():
+            for npay in range(4):
+                case(f"n={n}, {what}, {npay} payloads", key, *(rand_i32(n) for _ in range(npay)))
+                ncases += 1
+    # the fast chain's own operands, through kernel 1 and the centroids
+    mkey, fracs, vmin_safe = voxelize._front(c.buf, CELL)
+    torch.cuda.synchronize()
+    sort_by_key.launches = segment_reduce_sorted.launches = 0
+    smk, sfr, srgba = sort_by_key(mkey, fracs, c.buf.rgba)
+    rows, key, nseg = segment_reduce_sorted(smk, sfr, srgba, OCAP)
+    down6 = voxelize._reduce_runs_cm(rows, key, nseg, vmin_safe, CELL, OCAP)
+    torch.cuda.synchronize()
+    launches = sort_by_key.launches
+    check(launches >= 1 and segment_reduce_sorted.launches >= 1, "kernels 6 and 1 were not launched")
+    (gk, *_), (wk, *_) = case("the fast chain's operands", mkey, fracs, c.buf.rgba)
+    err = float((gk.double() - wk.double()).abs().max())
+    check(all(same_bits(a, b) for a, b in zip(down6, c.down)) and int(down6[4]) == WANT_VOXELS,
+          "kernel 6 -> kernel 1 does not give the fast downsample's voxels")
+    print(f"{c.card} phase 12 ok {c.lap()}: kernel 6 equal to its plain version in {ncases} cases"
+          f" (n {SORT_NS}, 0-3 payloads) and on the fast chain's {mkey.shape[0]} keys; fed to kernel 1,"
+          f" {int(down6[4])} voxels bit-equal to the fast downsample; launches {launches}")
+    return dict(mkey=mkey, fracs=fracs, launches=launches, err=err)
+
+
+def scan_phase(c):
+    """Phase 13: kernel 7 against its plain version, all five forms."""
+    import torch
+
+    from cwipc_util_tpu_torch.ops.scan_probe import FORMS, make_inputs, scan_program, scan_program_plain
+
+    xs = {f: x.to(c.dev) for f, x in make_inputs(SCAN_S, SCAN_TILES).items()}
+    torch.cuda.synchronize()
+    scan_program.launches = 0
+    outs = {f: scan_program(xs[f], f, SCAN_T) for f in FORMS}
+    torch.cuda.synchronize()
+    launches = scan_program.launches
+    check(launches == len(FORMS), f"kernel 7 launched {launches} times for {len(FORMS)} forms")
+    means, err = {}, 0.0
+    for f in FORMS:
+        want = scan_program_plain(xs[f], f, SCAN_T)
+        torch.cuda.synchronize()
+        check(same_bits(outs[f], want), f"kernel 7 ({f}) differs from its plain version")
+        check(bool((outs[f] == outs[f][0]).all()), f"kernel 7 ({f}): the 8 rows differ")
+        err = max(err, float((outs[f].double() - want.double()).abs().max()))
+        means[f] = float(outs[f][0].double().mean())
+    check(torch.equal(outs["mxu"], outs["i32"]), "kernel 7: the mxu count differs from the i32 count")
+    print(f"{c.card} phase 13 ok {c.lap()}: kernel 7 bit-equal to its plain version in all five forms at"
+          f" S {SCAN_S}, T {SCAN_T}, {SCAN_TILES} tiles; mean accumulator per form {means}")
+    return dict(xs=xs, launches=launches, err=err)
+
+
+def kdtree_cloud():
+    """The smallest cloud found (on the CPU, with the host functions alone)
+    that no column grid fits: a dense cluster (sigma 2 mm) holding the
+    median spacing near 0.5 mm, and a sparse spread over a 2 m cube that
+    survives the percentile clip, so every axis needs > 8M slots."""
+    import numpy as np
+
+    rng = np.random.default_rng(42)
+    xyz = np.concatenate([rng.normal(0.0, 0.002, (KD_CLUSTER, 3)),
+                          rng.uniform(-KD_SIDE / 2, KD_SIDE / 2, (KD_SPREAD, 3))]).astype(np.float32)
+    from cwipc_util_tpu_torch import POINT_DTYPE
+
+    arr = np.zeros(len(xyz), POINT_DTYPE)
+    arr["x"], arr["y"], arr["z"] = xyz.T
+    arr["r"], arr["g"], arr["b"] = rng.integers(0, 256, (3, len(xyz))).astype(np.uint8)
+    arr["tile"] = 1
+    return arr
+
+
+def grid_exact_mask(xyz, cell, cap):
+    """Points whose 27 grid cells (as _mean_knn_dist_grid bins them) all
+    hold at most cap points: there the method sees every point of its ring."""
+    import numpy as np
+
+    v = np.floor(xyz / np.float32(cell)).astype(np.int64)
+    v -= v.min(0)
+    key = (v[:, 0] << 42) | (v[:, 1] << 21) | v[:, 2]
+    uk, cnt = np.unique(key, return_counts=True)
+    ok = np.ones(len(xyz), bool)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                nk = ((v[:, 0] + dx) << 42) | ((v[:, 1] + dy) << 21) | (v[:, 2] + dz)
+                pos = np.clip(np.searchsorted(uk, nk), 0, len(uk) - 1)
+                ok &= ~((uk[pos] == nk) & (cnt[pos] > cap))
+    return ok, int(cnt.max())
+
+
+def ops_phase(c):
+    """Phase 14: the exact-key downsamples, the grid method, the KD-tree
+    route and one 1M-point frame through the filter factory, each held
+    against a numpy or float64 cKDTree oracle."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    import cwipc_util_tpu_torch as port
+    import cwipc_util_tpu_torch.ops as port_ops
+    from cwipc_util_tpu_torch import filters
+    from cwipc_util_tpu_torch.ops import compaction, outliers, voxelize
+    from cwipc_util_tpu_torch.ops.cols_select import cols_select
+    from cwipc_util_tpu_torch.ops.compact_kernel import compact_kernel_cm
+    from cwipc_util_tpu_torch.ops.segment_reduce import segment_reduce_sorted
+    from cwipc_util_tpu_torch.ops.window_knn import window_knn_mean_distance_cm
+
+    out = {}
+    # the exact-key downsamples through cwipc_downsample; which path ran is recorded
+    rng = np.random.default_rng(14)
+    wide = np.zeros(WIDE_N, port.POINT_DTYPE)
+    wide["x"], wide["y"], wide["z"] = rng.uniform(-WIDE_HALF, WIDE_HALF, (3, WIDE_N)).astype(np.float32)
+    for ch in ("r", "g", "b"):
+        wide[ch] = rng.integers(0, 256, WIDE_N)
+    wide["tile"] = np.left_shift(1, rng.integers(0, 8, WIDE_N)).astype(np.uint8)
+    forms, real_down = [], voxelize.downsample
+
+    def recording_down(buf_, cell_, **kw):
+        forms.append(kw)
+        return real_down(buf_, cell_, **kw)
+
+    for name, arr, cell in (("bench cloud at 1 mm", c.pts, DOWN_FINE), ("200 m scene at 5 mm", wide, WIDE_CELL)):
+        pc = port.cwipc_from_numpy_array(arr, 3, device=c.dev)
+        voxelize.downsample = recording_down
+        try:
+            down = port.cwipc_downsample(pc, cell)
+            torch.cuda.synchronize()
+        finally:
+            voxelize.downsample = real_down
+        n, maxc, err, atol = hold_downsample(down.get_numpy_array(), arr, cell, False, name)
+        kw = forms[-1]
+        check(kw["exact_keys"], f"{name}: cwipc_downsample did not take the exact-key path")
+        print(f"{c.card} phase 14: cwipc_downsample, {name}: {n} voxels (at most {maxc} points each),"
+              f" exact-key path; voxels, colours and tile OR equal to the numpy oracle, centroids within"
+              f" {err} (allowed {atol})")
+        out[name] = (pc._access_buffer(), cell)
+    # the grid method on the fast downsample's 217,570 points
+    x, y, z, rgba, cnt = c.down
+    n = int(cnt)
+    xyz = torch.stack([x, y, z], -1)
+    md = outliers._mean_knn_dist_grid(xyz, cnt, GRID_CELL, GRID_K, cell_cap=GRID_CAP)
+    torch.cuda.synchronize()
+    xyz_np = xyz[:n].cpu().numpy()
+    dist, _ = cKDTree(xyz_np.astype(np.float64)).query(xyz_np.astype(np.float64), k=GRID_K + 1, workers=-1)
+    md64 = dist[:, 1:].mean(1)
+    fits, maxocc = grid_exact_mask(xyz_np, GRID_CELL, GRID_CAP)
+    exact = fits & (dist[:, GRID_K] < GRID_CELL * (1 - 1e-6))
+    got = md[:n].double().cpu().numpy()
+    gerr = float(np.abs(got[exact] - md64[exact]).max())
+    check(np.allclose(got[exact], md64[exact], rtol=1e-5, atol=1e-9),
+          f"grid method: md differs from the oracle where the ring holds the k nearest: max abs {gerr}")
+    check(bool(torch.isfinite(md).all()) and not md[n:].any(), "grid method: md not finite or tail not zero")
+    compact_kernel_cm.launches = 0
+    gclean = outliers.remove_outliers(port.PointBuffer(xyz=xyz, rgba=rgba, count=cnt), GRID_K, MULT,
+                                      method="grid", cell=GRID_CELL, cell_cap=GRID_CAP)
+    torch.cuda.synchronize()
+    check(compact_kernel_cm.launches >= 1, "grid method: kernel 3 was not launched")
+    print(f"{c.card} phase 14: grid method at cell {GRID_CELL}, cap {GRID_CAP}, k {GRID_K} on {n} points:"
+          f" md allclose to the float64 cKDTree oracle on the {int(exact.sum())} points whose k-th neighbour"
+          f" lies within one cell (max abs {gerr}); {n - int(exact.sum())} outside that (fullest cell"
+          f" {maxocc} points); kept {int(gclean.count)}")
+    out["grid"] = (xyz, cnt)
+    # the KD-tree route: a cloud no column grid fits, unpatched
+    kd = kdtree_cloud()
+    pc = port.cwipc_from_numpy_array(kd, 4, device=c.dev)
+    kd64 = points_xyz(kd).astype(np.float64)
+    k_cell = max(1.0, float(np.sqrt(K / np.pi)) / 3.0) * port_ops._estimate_spacing(pc)
+    check(port_ops._cols_grid_params(kd64, k_cell) is None, "the KD-tree cloud fits a column grid")
+    compact_kernel_cm.launches = cols_select.launches = 0
+    clean = port.cwipc_remove_outliers(pc, K, MULT, False)
+    torch.cuda.synchronize()
+    check(compact_kernel_cm.launches >= 1 and cols_select.launches == 0,
+          "the KD-tree route must compact on kernel 3 and not launch kernel 4")
+    md_kd, thr_kd = oracle(kd64)
+    got = clean.get_numpy_array()
+    mask = kept_mask(got, kd, "KD-tree route")
+    check(np.array_equal(got, kd[mask]), "KD-tree route: kept points out of order")
+    flips = near_flips(mask, md_kd <= thr_kd, md_kd, thr_kd, "KD-tree route")
+    print(f"{c.card} phase 14: KD-tree route on {len(kd)} points ({KD_CLUSTER} in a 2 mm cluster, {KD_SPREAD}"
+          f" over a {KD_SIDE} m cube; no column grid fits at cell {k_cell}): kept {len(got)}, oracle"
+          f" {int((md_kd <= thr_kd).sum())}, {flips} flips near the threshold")
+    out["kd"] = pc
+    # one 1M-point frame through the filter factory
+    P = perturbation(REG_SEED, REG_TRANSLATION, REG_ROTATION)
+    descs = [f"voxelize({CELL!r})", f"remove_outliers({K}, {MULT!r}, False)", f"crop{CROP!r}",
+             f"transform44({P.tolist()!r})", "colorize(0.5, 'contributions')", "analyze"]
+    kernels = (segment_reduce_sorted, compact_kernel_cm, cols_select, window_knn_mean_distance_cm)
+
+    def run_frame():
+        """The frame through the six filters: (clouds, filters, host seconds
+        of each stage ending in a synchronize, the host copy-in first)."""
+        stage_s = []
+        t_0 = time.perf_counter()
+        pcs = [port.cwipc_from_numpy_array(c.pts, 42, device=c.dev)]
+        pcs[0]._access_buffer()
+        flts = [filters.factory(d) for d in descs]
+        for f in [None, *flts]:
+            if f is not None:
+                pcs.append(f.filter(pcs[-1]))
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stage_s.append(now - t_0)
+            t_0 = now
+        return pcs, flts, stage_s
+
+    torch.cuda.synchronize()
+    for f in kernels:
+        f.launches = 0
+    pcs, flts, _ = run_frame()
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in kernels}
+    check(all(launches[f.__name__] >= 1 for f in kernels[:3]),
+          f"kernels 1, 3 and 4 must run on the filter path: {launches}")
+    arrs = [p.get_numpy_array() for p in pcs]
+    sizes = [len(a) for a in arrs]
+    nvox, _, verr, _ = hold_downsample(arrs[1], arrs[0], CELL, True, "filter voxelize")
+    check(nvox == WANT_VOXELS, f"filter voxelize: {nvox} voxels, expected {WANT_VOXELS}")
+    md_f, thr_f = oracle(points_xyz(arrs[1]).astype(np.float64))
+    mask = kept_mask(arrs[2], arrs[1], "filter remove_outliers")
+    check(np.array_equal(arrs[2], arrs[1][mask]), "filter remove_outliers: kept points out of order")
+    f_flips = near_flips(mask, md_f <= thr_f, md_f, thr_f, "filter remove_outliers")
+    box = np.float32(CROP)
+    p3 = points_xyz(arrs[2])
+    inside = np.all((p3 >= box[0::2]) & (p3 < box[1::2]), axis=1)
+    check(0 < inside.sum() < len(p3) and np.array_equal(arrs[3], arrs[2][inside]),
+          "filter crop: not the points inside the box, or the box does not cut the body")
+    moved64 = points_xyz(arrs[3]).astype(np.float64) @ P[:3, :3].T + P[:3, 3]
+    want4 = arrs[3].copy()
+    want4["x"], want4["y"], want4["z"] = moved64.astype(np.float32).T
+    check(np.array_equal(arrs[4], want4), "filter transform44 differs from the numpy oracle")
+    tbuf = port.buffer_from_numpy(arrs[3], device=c.dev)
+    t44 = compaction.transform44(tbuf, P)
+    terr = float(np.abs(t44.xyz[:len(arrs[3])].double().cpu().numpy() - moved64).max())
+    check(terr < 2e-6, f"ops transform44 on the card: {terr} from the float64 oracle (TF32 would be ~1e-3)")
+    bitcount = [(0.2, 0.2, 0.2), (1, 1, 1), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0.5, 0.5, 0),
+                (0, 0.5, 0.5), (0.5, 0, 0.5), (0, 0, 0)]
+    lut = np.array([bitcount[bin(i).count("1")] for i in range(256)]) * 255.0
+    want5 = arrs[4].copy()
+    for i, ch in enumerate(("r", "g", "b")):
+        want5[ch] = np.floor(lut[arrs[4]["tile"], i] * 0.5 + arrs[4][ch] * 0.5).astype(np.uint8)
+    check(np.array_equal(arrs[5], want5), "filter colorize differs from the numpy oracle")
+    an = flts[5]
+    p5 = points_xyz(arrs[5]).astype(np.float64)
+    check(pcs[6] is pcs[5] and np.allclose(an.mins, p5.min(0)) and np.allclose(an.maxs, p5.max(0))
+          and np.allclose(an.sum_avg, p5.mean(0), atol=1e-6), "filter analyze: statistics differ")
+    print(f"{c.card} phase 14: filter frame {descs[:3]}, transform44(seed-42 perturbation), {descs[4:]}:"
+          f" points per stage {sizes}; voxelize {nvox} voxels (centroids within {verr}); remove_outliers"
+          f" equal to the float64 oracle ({f_flips} flips near the threshold); crop, transform44 and colorize"
+          f" equal to numpy; ops.transform44 on the card within {terr} of float64; launches {launches}")
+    an.statistics()
+    print(f"{c.card} phase 14 ok {c.lap()}")
+    out.update(run_frame=run_frame, descs=descs, launches=launches)
+    return out
+
+
+def times_phase(c, s12, s13, s14, k4):
+    """Phase 15: times with CUDA events; returns kernels 6 and 7's records."""
+    import torch
+
+    from cwipc_util_tpu_torch.ops import outliers, voxelize
+    from cwipc_util_tpu_torch.ops.scan_probe import FORMS, scan_program, scan_program_plain
+    from cwipc_util_tpu_torch.ops.sort_kernel import sort_by_key, sort_by_key_plain
+
+    records = []
+    mkey, fracs, rgba = s12["mkey"], s12["fracs"], c.buf.rgba
+
+    def library_sort():  # what _sort_front pays now: torch.sort, then the gathers
+        skey, order = torch.sort(mkey)
+        return skey, torch.gather(fracs, 0, order), torch.gather(rgba, 0, order)
+
+    def k6():
+        return sort_by_key(mkey, fracs, rgba)
+
+    def k6_plain():
+        return sort_by_key_plain(mkey, fracs, rgba)
+
+    p1, k1, k2, p2 = time_ms(k6_plain), time_ms(k6), time_ms(k6), time_ms(k6_plain)
+    kms, pms, lms = statistics.median([k1, k2]), statistics.median([p1, p2]), time_ms(library_sort)
+    nbytes = 2 * tensor_bytes(mkey, fracs, rgba)  # keys and two payloads, read and written once
+    bms, bby = bound(nbytes, 0)
+    print(f"{c.card} kernel sort_by_key at {mkey.shape[0]} x 3: {kms} ms (runs {k1}, {k2}); plain PyTorch"
+          f" {pms} ms (runs {p1}, {p2}); torch.sort + 2 gathers {lms} ms; bound {bms} ms ({bby}: {nbytes} bytes)")
+    records.append({
+        "name": "sort_by_key", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/sort.cu",
+        "replaces": "cwipc_util_tpu/ops/pallas_sort.py:169", "launches": s12["launches"],
+        "max_abs_err": s12["err"], "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
+        "library_ms": lms,
+    })
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_rate = INT32_LANES * sms * float(clock) * 1e6
+    steps = SCAN_S * SCAN_TILES * 128 * SCAN_T
+    rates = {}
+    for f in FORMS:
+        x = s13["xs"][f]
+        kf = time_ms(lambda: scan_program(x, f, SCAN_T))
+        pf = time_ms(lambda: scan_program_plain(x, f, SCAN_T), reps=3, warm=1)
+        rates[f] = steps / (kf / 1e3)
+        # the ones product on the tensor cores for mxu (JAX's ones [8, S]), else one int32 issue a step
+        ops_ms = (2 * 8 * steps / F16_TENSOR_FLOPS if f == "mxu" else steps / int32_rate) * 1e3
+        fbms, fbby = bound(tensor_bytes(x) + 8 * x.shape[1] * 4, 0)
+        if ops_ms > fbms:
+            fbms, fbby = ops_ms, "operations"
+        print(f"{c.card} kernel scan_program ({f}): {kf} ms, {rates[f]} element-steps/s; plain PyTorch {pf} ms;"
+              f" bound {fbms} ms ({fbby})")
+        if f == "i32":
+            records.append({
+                "name": "scan_program", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/scan_probe.cu",
+                "replaces": "benchmarks/sel_roofline.py:114", "launches": s13["launches"], "max_abs_err": s13["err"],
+                "ms": kf, "plain_ms": pf, "bound_ms": fbms, "bound_by": fbby, "library_ms": None,
+            })
+    print(f"{c.card} the int32 issue rate: {INT32_LANES} lanes x {sms} SMs x {clock} MHz = {int32_rate} /s;"
+          f" {steps} element-steps a run")
+    k4_steps = k4["pairs"] * K4_MAX_STEPS
+    print(f"{c.card} kernel 4's scan yardstick: {k4['pairs']} ring pairs x at most {K4_MAX_STEPS} bisection"
+          f" steps = {k4_steps} element-steps, {k4_steps / rates['i32'] * 1e3} ms at kernel 7's i32 rate"
+          f" (kernel 4 {k4['ms']} ms)")
+    for name, (buf_, cell) in ((k, v) for k, v in s14.items() if k.endswith("mm")):
+        ms = time_ms(lambda: voxelize.downsample(buf_, cell, exact_keys=True), reps=5, warm=1)
+        print(f"{c.card} exact-key downsample, {name}: median {ms} ms")
+    gxyz, gcnt = s14["grid"]
+    gms = time_ms(lambda: outliers._mean_knn_dist_grid(gxyz, gcnt, GRID_CELL, GRID_K, cell_cap=GRID_CAP),
+                  reps=5, warm=1)
+    print(f"{c.card} grid method md at {int(gcnt)} points: median {gms} ms")
+    # the KD-tree route is host work on a CUDA cloud: copy out, cKDTree, md back
+    import cwipc_util_tpu_torch as port
+
+    kd_pc, kd_s = s14["kd"], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t_0 = time.perf_counter()
+        port.cwipc_remove_outliers(kd_pc, K, MULT, False)
+        torch.cuda.synchronize()
+        kd_s.append(time.perf_counter() - t_0)
+    print(f"{c.card} KD-tree route (host cKDTree) on {kd_pc.count()} points: median {statistics.median(kd_s)} s"
+          f" (host clock; runs {kd_s})")
+    frames = [s14["run_frame"]()[2] for _ in range(3)]
+    stage_s = [statistics.median(st) for st in zip(*frames)]
+    names = ["copy in (1M points)"] + [d.split("(")[0] for d in s14["descs"]]
+    print(f"{c.card} filter frame (1M points in, six filters, host copies included): median"
+          f" {statistics.median(sum(st) for st in frames)} s; stages (median s) {dict(zip(names, stage_s))}")
+    print(f"{c.card} phase 15 ok {c.lap()}")
+    return records
 
 
 def main() -> int:
@@ -199,12 +772,6 @@ def main() -> int:
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def bits(x):
-        return x.view(torch.int32)
-
-    def same_bits(a, b):
-        return a.shape == b.shape and torch.equal(bits(a.contiguous()), bits(b.contiguous()))
 
     # ---- phase 2: each kernel against its plain version -------------------
     pts = _generate_host(HSTEPS, HSTEPS, 0.5)
@@ -435,21 +1002,6 @@ def main() -> int:
           f" {n_flips} keep flips near the threshold), launches {launches}, no host sync")
 
     # ---- phase 4: times ----------------------------------------------------
-    def time_ms(fn, reps=REPS, warm=3):
-        for _ in range(warm):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-
     def run_chain():
         return port.downsample_outliers_tilefilter(
             buf, CELL, k=K, mult=MULT, tile=TILE, window=WINDOW, out_capacity=OCAP
@@ -521,29 +1073,6 @@ def main() -> int:
 
     # ---- phase 5: the exact chain, once, through the public function ------
     from scipy.spatial import cKDTree
-
-    def oracle(xyz64):
-        """float64 cKDTree mean distances and the keep threshold."""
-        dist, _ = cKDTree(xyz64).query(xyz64, k=K + 1, workers=-1)
-        md64 = dist[:, 1:].mean(axis=1)
-        n = len(md64)
-        var = ((md64 * md64).sum() - md64.sum() ** 2 / n) / max(n - 1, 1)
-        return md64, md64.mean() + MULT * np.sqrt(max(var, 0.0))
-
-    def kept_mask(got_rows, cand_rows, what):
-        """Which candidate rows a result kept, matched by their bytes."""
-        kept = {r.tobytes() for r in got_rows}
-        mask = np.array([r.tobytes() in kept for r in cand_rows], bool)
-        check(len(kept) == len(got_rows) == int(mask.sum()), f"{what}: kept rows are not rows of the input")
-        return mask
-
-    def near_flips(mask, want, md64, thr64, what):
-        """Keep flips against the oracle; all must lie within 1e-5 * thr of
-        the threshold."""
-        flip = mask != want
-        check(bool(np.all(np.abs(md64[flip] - thr64) <= 1e-5 * thr64)),
-              f"{what}: {int(flip.sum())} keep flips against the oracle, not all near the threshold")
-        return int(flip.sum())
 
     def exact(tile):
         return port.downsample_outliers_tilefilter_exact(
@@ -1026,17 +1555,6 @@ def main() -> int:
     print(f"{card} phase 10 ok {lap()}")
 
     # ---- phase 11: times of the registration path ----------------------------
-    def host_s(fn, reps=3):
-        """Median host seconds of fn ending in a synchronize."""
-        out = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t_0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append(time.perf_counter() - t_0)
-        return statistics.median(out)
-
     first_icp = flow_icp[0]
     icp30_s = host_s(lambda: real_icp(*first_icp["args"], **first_icp["kw"]))
     icp160_s = host_s(lambda: real_icp(*gicp["args"], **gicp["kw"]), reps=1)
@@ -1112,6 +1630,16 @@ def main() -> int:
         "library_ms": None,
     })
     print(f"{card} phase 11 ok {lap()}")
+
+    # ---- phases 12-15: kernels 6 and 7, the ops and filter path, times -------
+    from types import SimpleNamespace
+
+    ctx = SimpleNamespace(dev=dev, card=card, lap=lap, t=t, buf=buf, pts=pts, down=(x, y, z, rgba, cnt))
+    s12 = sort_phase(ctx)
+    s13 = scan_phase(ctx)
+    s14 = ops_phase(ctx)
+    k4 = {"pairs": k4_pairs, "ms": next(r["ms"] for r in record if r["name"] == "cols_select")}
+    record += times_phase(ctx, s12, s13, s14, k4)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

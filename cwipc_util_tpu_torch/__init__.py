@@ -5,8 +5,11 @@ Hopper GPU.  It keeps the JAX package's module tree and public names;
 clouds are fixed-capacity SoA buffers on a torch device.  The kernels of
 the fused downsample -> outlier -> tilefilter chains and of
 ``cwipc_remove_outliers`` are hand-written CUDA (``csrc/``), built with
-nvcc at first use; so is the nearest-neighbour kernel of the
-multi-camera registration toolkit (``registration/``).
+nvcc at first use; so are the nearest-neighbour kernel of the
+multi-camera registration toolkit (``registration/``), the key+payload
+sort (``ops/sort_kernel.py``) and the scan-rate probe
+(``ops/scan_probe.py``).  The filters and their string factory are in
+``filters/``.
 
 The device is explicit: sources and converters take ``device`` (default
 ``"cuda"``; without CUDA that raises :class:`CwipcError`), and every op
@@ -43,11 +46,14 @@ from .core.pointcloud import (
 )
 from .models.synthetic import cwipc_source_synthetic, cwipc_synthetic
 from .ops import (
+    cwipc_colormap,
+    cwipc_crop,
     cwipc_downsample,
     cwipc_join,
     cwipc_join_multi,
     cwipc_remove_outliers,
     cwipc_tilefilter,
+    cwipc_tilemap,
 )
 from .ops.chain import downsample_outliers_tilefilter, downsample_outliers_tilefilter_exact
 from .utils.logging import (
@@ -112,6 +118,8 @@ __all__ = [
     "buffer_to_bytes",
     "buffer_to_numpy",
     "cwipc_activesource_abstract",
+    "cwipc_colormap",
+    "cwipc_crop",
     "cwipc_dangling_allocations",
     "cwipc_downsample",
     "cwipc_from_numpy_array",
@@ -131,6 +139,7 @@ __all__ = [
     "cwipc_source_synthetic",
     "cwipc_synthetic",
     "cwipc_tilefilter",
+    "cwipc_tilemap",
     "downsample_outliers_tilefilter",
     "downsample_outliers_tilefilter_exact",
     "resolve_device",

@@ -59,6 +59,12 @@ _SIGNATURES = {
     "cwipc_cols_select": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # rx, ry, rz, qx, qy, qz, cap_r, cap_q, gz, gyz, d2, cid, stream
     "cwipc_nn_select": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # keys, n, keys_a, keys_b, idx_a, idx_b, counts, offsets, totals, digit_base, total, stream
+    "cwipc_sort_pairs": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # src, idx, n, dst, stream
+    "cwipc_gather_i32": (_P, _P, _I, _P, _P),
+    # x, form, s, c, t_steps, cnt, out, stream
+    "cwipc_scan_probe": (_P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -1,19 +1,17 @@
 """Point-cloud operators on wrapper objects — the reference op API.
 
-The port of the slice's entry points of cwipc_util_tpu/ops/__init__.py.
-Each op takes and returns a :class:`cwipc_pointcloud_wrapper`; the work
-runs on the wrapper's device.  Timestamp and cellsize bookkeeping as in
-the reference: downsample's result cellsize is max(input cellsize,
-|requested|) (cwipc_filters.cpp:103-106); tilefilter and remove_outliers
-pass both through; join takes the minima of its inputs
+The port of cwipc_util_tpu/ops/__init__.py.  Each op takes and returns a
+:class:`cwipc_pointcloud_wrapper`; the work runs on the wrapper's device.
+Timestamp and cellsize bookkeeping as in the reference: downsample's
+result cellsize is max(input cellsize, |requested|)
+(cwipc_filters.cpp:103-106); tilefilter, tilemap, crop, colormap and
+remove_outliers pass both through; join takes the minima of its inputs
 (cwipc_filters.cpp:411-414).
-
-Not ported yet: tilemap, colormap, crop.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Dict, Iterable, List, Union
 
 import numpy as np
 import torch
@@ -28,6 +26,9 @@ __all__ = [
     "cwipc_downsample",
     "cwipc_remove_outliers",
     "cwipc_tilefilter",
+    "cwipc_tilemap",
+    "cwipc_colormap",
+    "cwipc_crop",
     "cwipc_join",
     "cwipc_join_multi",
 ]
@@ -54,8 +55,9 @@ def cwipc_downsample(
         # divide by zero)
         return pc.clone()
     buf = pc._access_buffer()
-    # The single-Morton-key fast path is exact within a 1024^3-cell domain.
-    # The bounding box comes from the host cache when there is one.
+    # The single-Morton-key fast path is exact within a 1024^3-cell domain;
+    # wider scenes carry the exact voxel-coordinate keys.  The bounding box
+    # comes from the host cache when there is one.
     if pc.count() == 0:
         extent_cells = 0.0
     elif pc._np_cache is not None:
@@ -72,12 +74,8 @@ def cwipc_downsample(
         lo = torch.where(valid, buf.xyz, 3.0e38).amin(dim=0)
         hi = torch.where(valid, buf.xyz, -3.0e38).amax(dim=0)
         extent_cells = float((hi - lo).max()) / cellsize
-    if extent_cells >= 1023.0:
-        raise CwipcError(
-            "cwipc_downsample: scenes 1023 cells or wider need the exact-key"
-            " downsample, which is not yet ported"
-        )
-    out = voxelize.downsample(buf, cellsize)
+    exact = extent_cells >= 1023.0
+    out = voxelize.downsample(buf, cellsize, exact_keys=exact)
     return _wrap(out, pc, cellsize=cellsize)
 
 
@@ -165,7 +163,9 @@ def _remove_outliers_single(
 ) -> cwipc_pointcloud_wrapper:
     """Small clouds (n <= 4096) take the brute-force kNN; larger ones the
     column grid (kernel 4 on CUDA, its plain version on the CPU) with a
-    brute-force fixup for the ring-uncovered points."""
+    brute-force fixup for the ring-uncovered points, or, where no column
+    grid fits the slot budget, a host scipy cKDTree; the keep test and the
+    compaction then run on the cloud's device."""
     buf = pc._access_buffer()
     n = pc.count()
     if n <= 1:
@@ -180,11 +180,7 @@ def _remove_outliers_single(
     cell = max(1.0, float(np.sqrt(k_eff / np.pi)) / 3.0) * spacing
     params = _cols_grid_params(xyz_host, cell)
     if params is None:
-        # the JAX package takes a host KD-tree here
-        raise CwipcError(
-            "cwipc_remove_outliers: no column grid fits this cloud; the KD-tree"
-            " route for such clouds is not yet ported"
-        )
+        return _wrap(compaction.compact(buf, _kdtree_keep(xyz_host, buf, k_eff, mult)), pc)
     perm, gy, gz, cap, origin_cells = params
     xyz_perm = buf.xyz[:, list(perm)]
     md, unc = cols_knn_mean_distance(
@@ -195,6 +191,17 @@ def _remove_outliers_single(
     md = torch.where(unc, md_fix, md)
     keep = outliers._keep_from_mean_dists(md, buf.valid_mask(), float(mult))
     return _wrap(compaction.compact(buf, keep), pc)
+
+
+def _kdtree_keep(xyz_host: np.ndarray, buf, k: int, mult: float) -> torch.Tensor:
+    """The keep mask from exact host k-NN mean distances (scipy cKDTree in
+    float64, as the JAX package's host route), tested on ``buf``'s device."""
+    from scipy.spatial import cKDTree
+
+    dist, _ = cKDTree(xyz_host).query(xyz_host, k=k + 1, workers=-1)
+    md = np.zeros(buf.capacity, np.float32)
+    md[: xyz_host.shape[0]] = np.atleast_2d(dist)[:, 1:].sum(axis=1) / k
+    return outliers._keep_from_mean_dists(torch.from_numpy(md).to(buf.device), buf.valid_mask(), float(mult))
 
 
 def cwipc_remove_outliers(
@@ -228,6 +235,43 @@ def cwipc_remove_outliers(
     rv._set_timestamp(pc.timestamp())
     rv._set_cellsize(pc.cellsize())
     return rv
+
+
+def cwipc_tilemap(
+    pc: cwipc_pointcloud_wrapper,
+    mapping: Union[List[int], Dict[int, int], bytes, bytearray],
+) -> cwipc_pointcloud_wrapper:
+    """Rewrite tile numbers through a 256-entry map (list, bytes or dict)."""
+    if isinstance(mapping, dict):
+        lut = np.zeros(256, np.uint8)
+        for k, v in mapping.items():
+            if not 0 <= k <= 255 or not 0 <= v <= 255:
+                # a bare IndexError or a silent negative wrap would remap the wrong tile
+                raise CwipcError(f"cwipc_tilemap: entry {k}:{v} out of 0..255")
+            lut[k] = v
+    else:
+        lut = np.frombuffer(bytes(mapping), np.uint8).copy()
+        if lut.shape[0] != 256:
+            raise CwipcError("cwipc_tilemap: mapping must have 256 entries")
+    return _wrap(compaction.tilemap(pc._access_buffer(), torch.from_numpy(lut.astype(np.int32))), pc)
+
+
+def cwipc_colormap(
+    pc: cwipc_pointcloud_wrapper, clearBits: int, setBits: int
+) -> cwipc_pointcloud_wrapper:
+    """rgba' = (rgba & ~clearBits) | setBits; masks may touch the tile byte."""
+    rv = _wrap(compaction.colormap(pc._access_buffer(), clearBits, setBits), pc)
+    # the reference moves the metadata to the result (python/cwipc/util.py:1309-1317)
+    if pc._metadata is not None:
+        rv.access_metadata()._copy_from(pc._metadata)
+    return rv
+
+
+def cwipc_crop(
+    pc: cwipc_pointcloud_wrapper, bbox: Union[tuple, List[float]]
+) -> cwipc_pointcloud_wrapper:
+    """Crop to [minx,maxx) x [miny,maxy) x [minz,maxz)."""
+    return _wrap(compaction.crop(pc._access_buffer(), list(bbox)), pc)
 
 
 def cwipc_join(

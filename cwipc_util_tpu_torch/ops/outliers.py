@@ -9,8 +9,12 @@ standard deviation of those means, and keep where md <= mu + mult * sigma.
 ``_mean_knn_dist_window`` is the Morton-window approximation of the first
 step and the plain version of kernel 2 (ops/window_knn.py).
 ``_mean_knn_dist_bruteforce`` is the exact method for small clouds; the
-column-grid method for large ones is ops/cols_knn.py.  The ``grid``
-method is not ported yet.
+column-grid method for large ones is ops/cols_knn.py.
+``_mean_knn_dist_grid`` is the neighbourhood-grid method (``grid``): exact
+while each cell holds at most ``cell_cap`` points and every point's k-th
+neighbour lies in its 3x3x3 cell ring, as for a cloud downsampled at c
+with cells >= 3c and k <= 30; a neighbour the ring lacks counts as 2 cells
+away.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import math
 
+import numpy as np
 import torch
 
 from ..core.buffers import PointBuffer
@@ -127,12 +132,68 @@ def _mean_knn_dist_window(xyz: torch.Tensor, count: torch.Tensor, k: int, window
     return torch.where(idx < count, md, 0.0)
 
 
-def remove_outliers(buf: PointBuffer, k: int, mult: float, method: str = "exact", window: int = 32) -> PointBuffer:
+_AXIS_BITS = 10  # bits per axis of the grid method's packed cell key
+_AXIS_MAX = (1 << _AXIS_BITS) - 1
+_INT32_MAX = 2**31 - 1
+_GRID_BLOCK = 8192  # rows whose [rows, 27 * cell_cap] candidates are gathered at once
+
+
+def _mean_knn_dist_grid(xyz: torch.Tensor, count: torch.Tensor, cell, k: int, cell_cap: int = 32) -> torch.Tensor:
+    """Grid-bucketed kNN mean distance over the 3x3x3 cell ring (the JAX
+    ``_mean_knn_dist_grid``): points sorted by a 10-bit-per-axis cell key,
+    each of the 27 neighbour cells found by ``searchsorted``, up to
+    ``cell_cap`` candidates gathered from each, the k smallest by
+    ``topk``."""
+    cap = xyz.shape[0]
+    dev = xyz.device
+    idx = torch.arange(cap, dtype=torch.int32, device=dev)
+    valid = idx < count
+    cell_t = torch.tensor(float(np.float32(cell)), dtype=torch.float32, device=dev)
+    v = torch.floor(xyz / cell_t).to(torch.int32)
+    vmin = torch.where(valid[:, None], v, _INT32_MAX).amin(dim=0)
+    v = torch.clamp(v - vmin, 0, _AXIS_MAX)
+    key = torch.where(valid, (v[:, 0] << (2 * _AXIS_BITS)) | (v[:, 1] << _AXIS_BITS) | v[:, 2], _INT32_MAX)
+    skey, perm = torch.sort(key, stable=True)
+    sxyz, sv = xyz[perm], v[perm]
+    off = torch.arange(-1, 2, dtype=torch.int32, device=dev)
+    offsets = torch.stack(torch.meshgrid(off, off, off, indexing="ij"), -1).reshape(27, 3)
+    slots = torch.arange(cell_cap, dtype=torch.int64, device=dev)
+    out = []
+    for start in range(0, cap, _GRID_BLOCK):
+        rows_xyz, rows_v = sxyz[start:start + _GRID_BLOCK], sv[start:start + _GRID_BLOCK]
+        b = rows_xyz.shape[0]
+        rows_i = torch.arange(start, start + b, device=dev)
+        nb = rows_v[:, None, :] + offsets[None]  # [b, 27, 3]
+        in_grid = ((nb >= 0) & (nb <= _AXIS_MAX)).all(-1)
+        nb_key = (nb[..., 0] << (2 * _AXIS_BITS)) | (nb[..., 1] << _AXIS_BITS) | nb[..., 2]
+        lo = torch.searchsorted(skey, nb_key.reshape(-1), side="left").reshape(b, 27)
+        hi = torch.searchsorted(skey, nb_key.reshape(-1), side="right").reshape(b, 27)
+        hi = torch.where(in_grid, hi, lo)
+        cand = lo[:, :, None] + slots
+        cand_ok = (cand < hi[:, :, None]).reshape(b, -1)
+        cand = torch.clamp(cand, 0, cap - 1).reshape(b, -1)
+        diff = sxyz[cand] - rows_xyz[:, None, :]
+        d2 = (diff * diff).sum(-1)
+        d2 = torch.where(cand_ok & (cand != rows_i[:, None]), d2, F32_MAX)
+        small = torch.topk(d2, k, dim=-1, largest=False).values
+        dists = torch.where(small < F32_MAX / 2, torch.sqrt(torch.clamp_min(small, 0.0)), 2.0 * cell_t)
+        out.append(dists.sum(-1) / float(k))
+    md = torch.zeros(cap, dtype=torch.float32, device=dev).index_copy_(0, perm, torch.cat(out))
+    return torch.where(valid, md, 0.0)
+
+
+def remove_outliers(buf: PointBuffer, k: int, mult: float, method: str = "exact", cell=None,
+                    cell_cap: int = 32, window: int = 32) -> PointBuffer:
     """Statistical outlier removal over the whole buffer (no tiling).
 
     ``exact`` is the brute-force kNN; ``window`` the Morton-window
-    approximation through kernel 2 (ops/window_knn.py)."""
-    if method == "window":
+    approximation through kernel 2 (ops/window_knn.py); ``grid`` the
+    neighbourhood-grid method at grid cell ``cell``."""
+    if method == "grid":
+        if cell is None:
+            raise ValueError("remove_outliers: the grid method needs a cell size")
+        md = _mean_knn_dist_grid(buf.xyz, buf.count, cell, k, cell_cap=cell_cap)
+    elif method == "window":
         from .window_knn import window_knn_mean_distance_cm
 
         x, y, z = (buf.xyz[:, a].contiguous() for a in range(3))
@@ -140,6 +201,6 @@ def remove_outliers(buf: PointBuffer, k: int, mult: float, method: str = "exact"
     elif method == "exact":
         md = _mean_knn_dist_bruteforce(buf.xyz, buf.count, k)
     else:
-        raise ValueError(f"remove_outliers: method {method!r} is not ported (exact, window)")
+        raise ValueError(f"remove_outliers: unknown method {method!r} (exact, window, grid)")
     keep = _keep_from_mean_dists(md, buf.valid_mask(), mult)
     return compact(buf, keep)

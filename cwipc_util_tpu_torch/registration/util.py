@@ -6,8 +6,7 @@ radius percentiles and the algorithm base classes.  Every cloud these
 helpers derive stays on its input's device.
 
 Not ported yet: the viewer pickers (``project_point_indices``,
-``pick_index_at``, ``pick_points``, ``show_pointcloud``, ``o3d_*``) and
-``cwipc_colorized_copy`` (it needs filters/colorize.py).
+``pick_index_at``, ``pick_points``, ``show_pointcloud``, ``o3d_*``).
 """
 
 from __future__ import annotations
@@ -221,6 +220,16 @@ def cwipc_center(pc: cwipc_pointcloud_wrapper) -> Tuple[float, float, float]:
     """Centroid of a point cloud (reference: registration/util.py:84-89)."""
     points = pc.get_numpy_matrix()[:, :3]
     return tuple(np.mean(points, axis=0))
+
+
+def cwipc_colorized_copy(pc: cwipc_pointcloud_wrapper) -> cwipc_pointcloud_wrapper:
+    """A copy colorized by camera (tile) with weight 0.8, keeping the
+    source alive (reference: registration/util.py:91-96)."""
+    from ..filters.colorize import ColorizeFilter
+
+    cf = ColorizeFilter(0.8, "camera")
+    cf.set_keep_source()
+    return cf.filter(pc)
 
 
 def cwipc_compute_radius(

@@ -157,8 +157,14 @@ def test_public_wrappers_match_jax(cloud):
             np.testing.assert_allclose(a[f], b[f], rtol=0, atol=XLA_ATOL)
         pt.free()
         jt.free()
-    # the exact-key path is not ported: a scene 1023 cells wide raises
-    with pytest.raises(port.CwipcError, match="not yet ported"):
-        port.cwipc_downsample(ppc, 2.0 / 1100)
-    for pc in (jpc, ppc, jdown, pdown):
+    # a scene 1023 cells wide takes the exact-key path in both packages:
+    # the same voxels and colours, centroids within the same tolerance
+    jwide = jport.cwipc_downsample(jpc, 2.0 / 1100)
+    pwide = port.cwipc_downsample(ppc, 2.0 / 1100)
+    a, b = pwide.get_numpy_array(), jwide.get_numpy_array()
+    assert len(a) == len(b) > 0
+    np.testing.assert_array_equal(a[["r", "g", "b", "tile"]], b[["r", "g", "b", "tile"]])
+    for f in ("x", "y", "z"):
+        np.testing.assert_allclose(a[f], b[f], rtol=0, atol=XLA_ATOL)
+    for pc in (jpc, ppc, jdown, pdown, jwide, pwide):
         pc.free()
