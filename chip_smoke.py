@@ -21,7 +21,7 @@ phases that each stop the run at the first failure:
    217,570 voxels exactly, 103,015 +/- 10 kept points, the same result as
    the chain run through the plain versions, and every kernel launched;
 4. times with CUDA events: the chain, its stages, kernels 1-3 next to
-   their plain versions;
+   their plain versions, and kernel 3 next to ``rows[keep]``, in turns;
 5. the exact chain ``downsample_outliers_tilefilter_exact`` on the same
    cloud (bench.py's exact settings): 217,570 voxels, kept points equal to
    a float64 cKDTree oracle computed here (184,397 +/- 1 at tile 0,
@@ -51,14 +51,19 @@ phases that each stop the run at the first failure:
    its plain version (both recover the perturbation within 4 mm and
    0.02 rad and agree within 1 mm and 5e-3 rad), one analyzer query;
 11. times: the flow and its phases, one ICP run at 30k and 160k points,
-   the grid query's parts, kernel 5 next to its plain version, the grid
-   search next to the two-scale search;
+   the grid query's parts, kernel 5 next to its plain version on the
+   flow's largest grid, kernel 5 summed over every call of the flow with
+   its summed bound, the grid search next to the two-scale search;
 12. kernel 6 (the key+payload sort) against its plain version: keys
    bit-equal and each key's payload tuples equal, at 72 edge cases (all
    keys equal, sorted, reversed, negative, sentinels; n 8192, 1<<15,
-   1<<20; 0-3 payloads) and on the fast chain's own 1,048,576 sort
-   operands, whose kernel-6 order fed to kernel 1 and the centroids gives
-   the fast downsample's 217,570 voxels bit for bit;
+   1<<20; 0-3 payloads), with 6 payloads (two launches) and on the fast
+   chain's own 1,048,576 sort operands, whose kernel-6 order fed to
+   kernel 1 and the centroids gives the fast downsample's 217,570 voxels
+   bit for bit; for each edge-case key set, 1M random 30-bit keys and the
+   fast chain's keys, the device's upfront histogram equal to
+   ``digit_histogram`` and the passes its tile counters show it ran equal
+   to the host-side plan's ``passes_run``;
 13. kernel 7 (the scan probe) bit-equal to its plain version in all five
    forms at S 1536, T 64, 64 tiles, on sel_roofline.py's inputs;
 14. the ops and filter path: cwipc_downsample of the bench cloud at 1 mm
@@ -71,6 +76,8 @@ phases that each stop the run at the first failure:
    transform44, colorize, analyze), each stage against a numpy or cKDTree
    oracle, with kernels 1, 3 and 4 launched;
 15. times: kernel 6 next to its plain version and torch.sort + gathers,
+   in turns, with both's device time by kernel (torch.profiler) and host
+   time a call,
    kernel 7 per form in element-steps/s, kernel 4's scan yardstick, the
    exact-key downsamples, the grid method and the filter frame.
 
@@ -192,6 +199,22 @@ def time_ms(fn, reps=REPS, warm=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def in_turns(kernel, plain, library=None, plain_reps=REPS, plain_warm=3):
+    """Medians of a kernel, its plain version and, where there is one, the
+    PyTorch call that computes the same function, timed in turns on one
+    card: plain, library, kernel, kernel, library, plain.  Returns
+    (kernel ms, plain ms, library ms or None, the runs in that order,
+    without the library's where there is none)."""
+    p1 = time_ms(plain, reps=plain_reps, warm=plain_warm)
+    l1 = time_ms(library) if library else None
+    k1, k2 = time_ms(kernel), time_ms(kernel)
+    l2 = time_ms(library) if library else None
+    p2 = time_ms(plain, reps=plain_reps, warm=plain_warm)
+    lms = statistics.median([l1, l2]) if library else None
+    runs = (p1, l1, k1, k2, l2, p2) if library else (p1, k1, k2, p2)
+    return statistics.median([k1, k2]), statistics.median([p1, p2]), lms, runs
 
 
 def host_s(fn, reps=3):
@@ -343,9 +366,32 @@ def sort_phase(c):
 
     from cwipc_util_tpu_torch.ops import voxelize
     from cwipc_util_tpu_torch.ops.segment_reduce import segment_reduce_sorted
-    from cwipc_util_tpu_torch.ops.sort_kernel import sort_by_key, sort_by_key_plain
+    from cwipc_util_tpu_torch.ops.sort_kernel import (
+        PASSES,
+        RADIX,
+        _sort_cuda,
+        digit_histogram,
+        passes_run,
+        sort_by_key,
+        sort_by_key_plain,
+        sort_plan,
+    )
 
     rng = np.random.default_rng(6)
+
+    def plan_case(what, key):
+        """The device's upfront histogram against its plain version, and the
+        passes its tile counters show it ran against passes_run."""
+        plan = sort_plan(key.shape[0])
+        (_, scratch) = _sort_cuda(key, ())
+        torch.cuda.synchronize()
+        hist = scratch[:PASSES * RADIX].view(PASSES, RADIX).long()
+        counters = [int(v) for v in scratch[PASSES * RADIX:PASSES * RADIX + PASSES]]
+        check(torch.equal(hist, digit_histogram(key)), f"kernel 6 ({what}): the upfront histogram differs")
+        want = passes_run(hist.cpu(), key.shape[0])
+        check(counters == [plan.tiles if p in want else 0 for p in range(PASSES)],
+              f"kernel 6 ({what}): tile counters {counters}, the plan runs passes {want} of {plan.tiles} tiles")
+        return want
 
     def rand_i32(n, lo=-(2**31), hi=2**31):
         return c.t(rng.integers(lo, hi, n, dtype=np.int64).astype(np.int32))
@@ -359,7 +405,7 @@ def sort_phase(c):
               f"kernel 6 ({what}): a key's payload tuples differ from the plain version's")
         return got, want
 
-    ncases = 0
+    ncases, plans = 0, {}
     for n in SORT_NS:
         dup = rng.integers(-(n // 16), n // 16, n).astype(np.int32)
         dup[rng.random(n) < 0.1] = SENTINEL
@@ -375,6 +421,10 @@ def sort_phase(c):
             for npay in range(4):
                 case(f"n={n}, {what}, {npay} payloads", key, *(rand_i32(n) for _ in range(npay)))
                 ncases += 1
+            plans[f"n={n}, {what}"] = plan_case(f"n={n}, {what}", key)
+    # more payloads than one launch carries: a launch per group of them
+    case("n=8192, 6 payloads", rand_i32(8192), *(rand_i32(8192) for _ in range(6)))
+    plans["n=1<<20, 30-bit keys"] = plan_case("30-bit keys", rand_i32(1 << 20, 0, 1 << 30))
     # the fast chain's own operands, through kernel 1 and the centroids
     mkey, fracs, vmin_safe = voxelize._front(c.buf, CELL)
     torch.cuda.synchronize()
@@ -386,13 +436,18 @@ def sort_phase(c):
     launches = sort_by_key.launches
     check(launches >= 1 and segment_reduce_sorted.launches >= 1, "kernels 6 and 1 were not launched")
     (gk, *_), (wk, *_) = case("the fast chain's operands", mkey, fracs, c.buf.rgba)
+    passes = plan_case("the fast chain's operands", mkey)
     err = float((gk.double() - wk.double()).abs().max())
     check(all(same_bits(a, b) for a, b in zip(down6, c.down)) and int(down6[4]) == WANT_VOXELS,
           "kernel 6 -> kernel 1 does not give the fast downsample's voxels")
+    plan = sort_plan(mkey.shape[0])
+    print(f"{c.card} phase 12: kernel 6's passes, from its upfront histogram, as the host-side plan has them:"
+          f" {plans}; the fast chain's operands {passes}; {plan}")
     print(f"{c.card} phase 12 ok {c.lap()}: kernel 6 equal to its plain version in {ncases} cases"
-          f" (n {SORT_NS}, 0-3 payloads) and on the fast chain's {mkey.shape[0]} keys; fed to kernel 1,"
-          f" {int(down6[4])} voxels bit-equal to the fast downsample; launches {launches}")
-    return dict(mkey=mkey, fracs=fracs, launches=launches, err=err)
+          f" (n {SORT_NS}, 0-3 payloads), with 6 payloads, and on the fast chain's {mkey.shape[0]} keys;"
+          f" fed to kernel 1, {int(down6[4])} voxels bit-equal to the fast downsample; {plan.launches} launches"
+          f" a sort; wrapper launches {launches}")
+    return dict(mkey=mkey, fracs=fracs, launches=launches, err=err, plan=plan, passes=passes)
 
 
 def scan_phase(c):
@@ -646,12 +701,34 @@ def times_phase(c, s12, s13, s14, k4):
     def k6_plain():
         return sort_by_key_plain(mkey, fracs, rgba)
 
-    p1, k1, k2, p2 = time_ms(k6_plain), time_ms(k6), time_ms(k6), time_ms(k6_plain)
-    kms, pms, lms = statistics.median([k1, k2]), statistics.median([p1, p2]), time_ms(library_sort)
+    kms, pms, lms, runs = in_turns(k6, k6_plain, library_sort)
     nbytes = 2 * tensor_bytes(mkey, fracs, rgba)  # keys and two payloads, read and written once
     bms, bby = bound(nbytes, 0)
-    print(f"{c.card} kernel sort_by_key at {mkey.shape[0]} x 3: {kms} ms (runs {k1}, {k2}); plain PyTorch"
-          f" {pms} ms (runs {p1}, {p2}); torch.sort + 2 gathers {lms} ms; bound {bms} ms ({bby}: {nbytes} bytes)")
+    print(f"{c.card} kernel sort_by_key at {mkey.shape[0]} x 3: {kms} ms ({s12['plan'].launches} launches a"
+          f" sort, passes run {s12['passes']}); plain PyTorch {pms} ms; torch.sort + 2 gathers {lms} ms"
+          f" ({'kernel 6 faster' if kms < lms else 'kernel 6 slower'}); in turns (plain, torch.sort + gathers,"
+          f" kernel, kernel, torch.sort + gathers, plain) {runs}; bound {bms} ms ({bby}: {nbytes} bytes)")
+    # where the two spend it: device time per sort by kernel (torch.profiler)
+    # and host time per call (50 calls enqueued, then one synchronize)
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn in (("kernel 6", k6), ("torch.sort + 2 gathers", library_sort)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        per = [(e.key, e.count // 10, e.device_time_total / 10) for e in prof.key_averages() if e.device_time_total > 0]
+        torch.cuda.synchronize()
+        t_0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        host_us = (time.perf_counter() - t_0) / 50 * 1e6
+        torch.cuda.synchronize()
+        device = f"{sum(us for _, _, us in per)} us device time a sort" if per else "device time not measured"
+        print(f"{c.card} {name} at {mkey.shape[0]} x 3: {device} (by kernel: launches, us"
+              f" {[(k[:48], n_, us) for k, n_, us in per]}); host {host_us} us a call")
     records.append({
         "name": "sort_by_key", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/sort.cu",
         "replaces": "cwipc_util_tpu/ops/pallas_sort.py:169", "launches": s12["launches"],
@@ -1057,12 +1134,10 @@ def main() -> int:
     ]
     record = []
     for (name, src, tpu, err, kfn, pfn), f, (bms, bby), lib in zip(pairs, kernels, bounds, libs):
-        # plain, kernel, kernel, plain: one card, one call, in turns
-        p1, k1, k2, p2 = time_ms(pfn), time_ms(kfn), time_ms(kfn), time_ms(pfn)
-        kms, pms = statistics.median([k1, k2]), statistics.median([p1, p2])
-        lms = time_ms(lib) if lib else None
-        print(f"{card} kernel {name}: {kms} ms (runs {k1}, {k2}); plain PyTorch {pms} ms (runs {p1}, {p2});"
-              f" bound {bms} ms ({bby}); one PyTorch call {lms} ms")
+        kms, pms, lms, runs = in_turns(kfn, pfn, lib)
+        order = "plain, call, kernel, kernel, call, plain" if lib else "plain, kernel, kernel, plain"
+        print(f"{card} kernel {name}: {kms} ms; plain PyTorch {pms} ms; bound {bms} ms ({bby}); one PyTorch"
+              f" call {lms} ms; in turns ({order}) {runs}")
         record.append({
             "name": name, "route": "cuda", "source": f"cwipc_util_tpu_torch/csrc/{src}",
             "replaces": f"cwipc_util_tpu/ops/{tpu}", "launches": launches[f.__name__],
@@ -1212,9 +1287,7 @@ def main() -> int:
     def k4_plain():
         return cols_select_plain(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP, chunk=CHUNK, voxel_unique=True)
 
-    p1, k1, k2, p2 = (time_ms(k4_plain, reps=3, warm=1), time_ms(k4_kernel), time_ms(k4_kernel),
-                      time_ms(k4_plain, reps=3, warm=1))
-    kms, pms = statistics.median([k1, k2]), statistics.median([p1, p2])
+    kms, pms, _, k4_runs = in_turns(k4_kernel, k4_plain, plain_reps=3, plain_warm=1)
     from cwipc_util_tpu_torch.ops.nn_select import (
         INT32_MAX,
         nn_select,
@@ -1250,8 +1323,8 @@ def main() -> int:
     k4_pairs = ring_pairs(ex_planes[0], ex_planes[0], GZ, GY * GZ)
     k4_bytes = ring_bytes(ex_planes, None, GZ, GY * GZ, (sel, sel_kth))
     k4_bms, k4_bby = bound(k4_bytes, 8 * k4_pairs)
-    print(f"{card} kernel cols_select: {kms} ms (runs {k1}, {k2}); plain PyTorch {pms} ms (runs {p1}, {p2});"
-          f" bound {k4_bms} ms ({k4_bby}: {k4_bytes} bytes, {k4_pairs} ring pairs); no one PyTorch call"
+    print(f"{card} kernel cols_select: {kms} ms; plain PyTorch {pms} ms; in turns (plain, kernel, kernel, plain)"
+          f" {k4_runs}; bound {k4_bms} ms ({k4_bby}: {k4_bytes} bytes, {k4_pairs} ring pairs); no one PyTorch call"
           f" computes it")
     record.append({
         "name": "cols_select", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/cols_select.cu",
@@ -1613,16 +1686,23 @@ def main() -> int:
     def k5_plain():
         return nn_select_plain(*planes, **kw)
 
-    p1, k1, k2, p2 = (time_ms(k5_plain, reps=3, warm=1), time_ms(k5_kernel), time_ms(k5_kernel),
-                      time_ms(k5_plain, reps=3, warm=1))
-    kms, pms = statistics.median([k1, k2]), statistics.median([p1, p2])
+    kms, pms, _, k5_runs = in_turns(k5_kernel, k5_plain, plain_reps=3, plain_warm=1)
     # 8 flops of d2 per (query, candidate) pair of the ring
     k5_pairs = ring_pairs(planes[3], planes[0], kw["gz"], kw["gy"] * kw["gz"])
     k5_bytes = ring_bytes(planes[:3], planes[3:], kw["gz"], kw["gy"] * kw["gz"], k5_kernel())
     k5_bms, k5_bby = bound(k5_bytes, 8 * k5_pairs)
-    print(f"{card} kernel nn_select on the flow's largest grid {kw}: {kms} ms (runs {k1}, {k2}); plain PyTorch"
-          f" {pms} ms (runs {p1}, {p2}); bound {k5_bms} ms ({k5_bby}: {k5_bytes} bytes, {k5_pairs} ring pairs);"
-          f" no one PyTorch call computes it (torch.cdist + min is two calls over all pairs)")
+    print(f"{card} kernel nn_select on the flow's largest grid {kw}: {kms} ms; plain PyTorch {pms} ms; in turns"
+          f" (plain, kernel, kernel, plain) {k5_runs}; bound {k5_bms} ms ({k5_bby}: {k5_bytes} bytes, {k5_pairs} ring"
+          f" pairs); no one PyTorch call computes it (torch.cdist + min is two calls over all pairs)")
+    # every call the 30k flow made, each timed on its own planes
+    flow_ms, flow_bms = [], []
+    for pl, kw_ in flow_grids:
+        flow_ms.append(time_ms(lambda: nn_select(*pl, **kw_), reps=5, warm=1))
+        gyz_ = kw_["gy"] * kw_["gz"]
+        flow_bms.append(bound(ring_bytes(pl[:3], pl[3:], kw_["gz"], gyz_, nn_select(*pl, **kw_)),
+                              8 * ring_pairs(pl[3], pl[0], kw_["gz"], gyz_))[0])
+    print(f"{card} kernel nn_select summed over the flow's {len(flow_grids)} calls: {sum(flow_ms)} ms (per call"
+          f" {min(flow_ms)} to {max(flow_ms)} ms); bound summed {sum(flow_bms)} ms")
     record.append({
         "name": "nn_select", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/nn_select.cu",
         "replaces": "cwipc_util_tpu/ops/pallas_nn.py:246", "launches": reg_launches["nn_select"],

@@ -57,12 +57,12 @@ _SIGNATURES = {
     "cwipc_compact": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
     # xs, ys, zs, cap, gz, k, row0, nrows, sums, kth, stream
     "cwipc_cols_select": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    # rx, ry, rz, qx, qy, qz, cap_r, cap_q, gz, gyz, d2, cid, stream
-    "cwipc_nn_select": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
-    # keys, n, keys_a, keys_b, idx_a, idx_b, counts, offsets, totals, digit_base, total, stream
-    "cwipc_sort_pairs": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
-    # src, idx, n, dst, stream
-    "cwipc_gather_i32": (_P, _P, _I, _P, _P),
+    # rx, ry, rz, qx, qy, qz, cap_r, cap_q, gz, gyz, stage, d2, cid, stream
+    "cwipc_nn_select": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # keys, n, npay, 4 payloads in, keys_out, 4 payloads out, keys_a, keys_b, idx_a, idx_b,
+    # scratch, scratch_bytes, stream
+    "cwipc_sort_pairs": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         ctypes.c_longlong, _P),
     # x, form, s, c, t_steps, cnt, out, stream
     "cwipc_scan_probe": (_P, _I, _I, _I, _I, _P, _P, _P),
 }

@@ -26,11 +26,18 @@ either way.)  Kernel and plain version agree bit for bit: d2 is rounded
 op by op in both, with no FMA contraction.
 
 Bound on the H100: neither bytes nor operations (both a few µs at the
-registration flow's shapes); the kernel stages a ring per block and is
-most likely latency-bound, as kernel 4 is (see the source and PERF.md).
+registration flow's shapes).  The kernel stages the union of the rings of
+a strip of STRIP query columns once per block (9 rows of STRIP + 8
+columns) and spreads the strip's query slots over the block's threads;
+its host side, :func:`strip_plan`, sizes the stage so that every cap
+fits the default 48 KB of shared memory, with passes over rings denser
+than that.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -46,13 +53,42 @@ RING = [
     for dz in range(-_M, _M + 1)
     if max(abs(dy) - 1, 0) ** 2 + max(abs(dz) - 1, 0) ** 2 < _M * _M
 ]  # 77 columns: the 9x9 ring minus its 4 corners
-MAX_CAP = 1024  # one thread per query slot, one block per query column
+MAX_CAP = 1024  # query slots per column the kernel takes
+STRIP = 8  # query columns per block (nn_select.cu)
+THREADS = 512  # per block: the strip's query slots spread over them
+UNION_COLS = (2 * _M + 1) * (STRIP + 2 * _M)  # the strip's ring union: 9 rows of STRIP + 8 columns
+STAGE_MAX = 2048  # candidates staged per pass, 16 bytes each
+SMEM_LIMIT = 48 * 1024  # shared memory a block takes without cudaFuncAttributeMaxDynamicSharedMemorySize
 _PLAIN_BUDGET = 1 << 24  # elements of the plain version's distance tensor per chunk
 
 
 def ring_offsets(gz: int) -> list[int]:
     """Plane-row offsets of the ring columns, in candidate-id order."""
     return [dy * gz + dz for dy, dz in RING]
+
+
+@dataclass(frozen=True)
+class StripPlan:
+    """The launch nn_select.cu gets for one (cap_r, cap_q)."""
+
+    threads: int  # per block
+    stage: int  # candidates staged per pass
+    max_passes: int  # passes when every union slot is occupied
+    smem_bytes: int  # the stage (dynamic) and the bounds, offsets and warp sums (static)
+
+
+@functools.lru_cache(maxsize=256)
+def strip_plan(cap_r: int, cap_q: int) -> StripPlan:
+    """Stage as many candidates as the strip's ring union can hold, up to
+    STAGE_MAX; denser rings take passes."""
+    if not (1 <= cap_r and 1 <= cap_q <= MAX_CAP):
+        raise CwipcError(f"strip_plan: caps ({cap_r}, {cap_q}) outside [1, inf) x [1, {MAX_CAP}]")
+    stage = min(STAGE_MAX, UNION_COLS * cap_r)
+    # static: bounds and offsets of the union columns, warp sums, query
+    # counts and offsets of the strip's columns, rounded up to 16 bytes
+    static = -(-4 * (2 * UNION_COLS + 1 + THREADS // 32 + 2 * STRIP + 1) // 16) * 16
+    return StripPlan(threads=THREADS, stage=stage, max_passes=-(-UNION_COLS * cap_r // stage),
+                     smem_bytes=16 * stage + static)
 
 
 def _occupied_bound(plane: torch.Tensor) -> int:
@@ -130,7 +166,7 @@ def nn_select(r_xs, r_ys, r_zs, q_xs, q_ys, q_zs, *, gy, gz, cap_r, cap_q):
     with torch.cuda.device(r_xs.device):
         err = lib.cwipc_nn_select(
             P(r_xs), P(r_ys), P(r_zs), P(q_xs), P(q_ys), P(q_zs),
-            cap_r, cap_q, gz, gyz, P(d2), P(cid), _kernels.stream(r_xs),
+            cap_r, cap_q, gz, gyz, strip_plan(cap_r, cap_q).stage, P(d2), P(cid), _kernels.stream(r_xs),
         )
     _kernels.check(lib, err, what)
     nn_select.launches += 1

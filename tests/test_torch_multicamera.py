@@ -14,18 +14,13 @@ on scenes made once in numpy and handed to both packages.
   (camera, accepted) steps, and per-camera mode correspondences after
   registration (the register script's check_alignment) within 5 %
   relative of JAX's (measured: within 1e-5 relative, poses within
-  2.1e-6 m).  The default GICP aligner is held to JAX pair by pair in
-  tests/test_torch_registration.py, and its flow reaches the noise floor
-  at 30k points on the card (chip_smoke.py phase 9).  Its flow is not
-  compared here: the 4k-point body is sampled on rings, so many Morton
-  neighbourhoods are nearly collinear and their normals undetermined; the
-  two packages' eigen-solvers (LAPACK's eigh in JAX, Jacobi sweeps in the
-  port) pick different ones there, and the flow's later aligner runs, ill
-  conditioned about the vertical axis, amplify that (measured: pose
-  differences up to 0.11 m, mode differences up to 84 %).  Poses are not
-  compared either: a tile is a partial view of a body nearly symmetric
-  about the vertical axis, so the geometry does not fix the pose about
-  that axis.
+  2.1e-6 m).  The flow with the default GICP aligner is compared in
+  tests/test_torch_gicp_flow.py, on a scene whose normals are determined:
+  the 4k-point body here is sampled on rings, so many Morton
+  neighbourhoods are nearly collinear and their normals undetermined.
+  Poses are not compared here: a tile is a partial view of a body nearly
+  symmetric about the vertical axis, so the geometry does not fix the
+  pose about that axis.
 * nn_grid_params: the same grid for every aligner pair of the flow.
 """
 
