@@ -15,7 +15,9 @@ phases that each stop the run at the first failure:
    allclose with rtol 1e-5, atol 1e-7: only the order of its final sum
    differs; kernel 4 on every occupied slot: the covered/uncovered
    classification equal, kth bit-equal where covered, sums allclose with
-   rtol 1e-5, atol 1e-5);
+   rtol 1e-5, atol 1e-5, and a row range equal to the rows of the whole
+   run bit for bit; among its cases dense columns whose strip unions it
+   stages in passes);
 3. the fused chain ``downsample_outliers_tilefilter`` on the 1M-point
    synthetic bench cloud (bench.py's settings), with no host sync allowed:
    217,570 voxels exactly, 103,015 +/- 10 kept points, the same result as
@@ -29,9 +31,15 @@ phases that each stop the run at the first failure:
    voxel-set agreement with the fast chain, kept points in the input's
    order, kernels 1, 3 and 4 launched;
 6. the public ``cwipc_remove_outliers`` on a 40k-point synthetic cloud,
-   with and without perTile, against the same oracle, kernel 4 launched
-   and held to its plain version on each column grid the op builds;
+   with and without perTile, and on a 2 x 1.8 m wall of 40,000 points
+   with 200 copies of one point (sampled as a camera's pixels and
+   uniformly; grids of cap over 160), against the same oracle, kernel 4
+   launched and held to its plain version on each column grid the op
+   builds;
 7. times: the exact chain, its stages, kernel 4 next to its plain version;
+   kernel 4's phase profile (clock64 spans of its blocks) beside that of
+   a probe of its earlier design (one block per query column), the two
+   timed in turns;
 8. kernel 5 against its plain version at edge cases: d2 bit-equal and ids
    equal on every slot, empty query slots and empty rings at
    (F32_MAX, INT32_MAX);
@@ -74,10 +82,13 @@ phases that each stop the run at the first failure:
    route of cwipc_remove_outliers on a cloud no column grid fits; one 1M
    frame through filters.factory (voxelize, remove_outliers, crop,
    transform44, colorize, analyze), each stage against a numpy or cKDTree
-   oracle, with kernels 1, 3 and 4 launched;
+   oracle, with kernels 1, 3 and 4 launched and kernel 4 held to its plain
+   version on the grid it builds;
 15. times: kernel 6 next to its plain version and torch.sort + gathers,
    in turns, with both's device time by kernel (torch.profiler) and host
-   time a call,
+   time a call; kernel 3's host time a call by part (checks, allocation,
+   device guard, pointers, the ctypes call) beside the earlier wrapper's
+   parts, and its device time by kernel next to ``packed[keep]``'s;
    kernel 7 per form in element-steps/s, kernel 4's scan yardstick, the
    exact-key downsamples, the grid method and the filter frame.
 
@@ -145,7 +156,7 @@ SCAN_S, SCAN_T, SCAN_TILES = 1536, 64, 64
 # rate) and its dense f16 tensor-core peak (NVIDIA's data sheet)
 INT32_LANES = 64
 F16_TENSOR_FLOPS = 989e12
-K4_MAX_STEPS = 31  # kernel 4's bisection halves hi - lo < 2^31: at most 31 compare-and-count steps
+K4_MAX_STEPS = 31  # halving hi - lo < 2^31 takes at most 31 compare-and-count steps
 # the exact-key downsamples: the bench cloud at 1 mm (~2,000 cells) and
 # 1M uniform points over 200 m at 5 mm (40,000 cells, every voxel a singleton)
 DOWN_FINE = 0.001
@@ -154,6 +165,9 @@ WIDE_N, WIDE_HALF, WIDE_CELL = 1_000_000, 100.0, 0.005
 GRID_CELL, GRID_K, GRID_CAP = 3 * CELL, 12, 32
 # the KD-tree route's cloud: a 2 mm cluster and a spread over a 2 m cube
 KD_CLUSTER, KD_SPREAD, KD_SIDE = 2560, 2048, 2.0
+# kernel 4 at a cap over 160: a 2 x 1.8 m wall of 40,000 points with 2 mm of
+# noise and 200 copies of one point, as a merged multi-camera capture stacks them
+WALL_N, WALL_SIZE, WALL_NOISE, WALL_COPIES, WALL_SEED = 40000, (2.0, 1.8), 0.002, 200, 7
 # the filter frame's crop: 0.8 <= y < 1.5 m of the 2 m body
 CROP = (-1.0, 1.0, 0.8, 1.5, -1.0, 1.0)
 
@@ -229,6 +243,85 @@ def host_s(fn, reps=3):
         torch.cuda.synchronize()
         out.append(time.perf_counter() - t_0)
     return statistics.median(out)
+
+
+def maxabs(a, b):
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def r_cut(cell):
+    """The covered test's radius: 4 cells, less a relative 1e-6."""
+    import numpy as np
+
+    return float(np.float32(4.0) * np.float32(cell) * np.float32(1.0 - 1e-6))
+
+
+def hold_select(planes, cell, what, k, gy, gz, cap, voxel_unique=False, chunk=CHUNK):
+    """Kernel 4 against its plain version on one grid, on every occupied
+    slot: the covered/uncovered classification equal, kth bit-equal where
+    covered, sums allclose (rtol 1e-5, atol 1e-5); empty slots at (0,
+    F32_MAX).  ``chunk`` bounds the plain version's memory.  Returns
+    (kernel's (sums, kth), plain's, occupied, covered)."""
+    import torch
+
+    from cwipc_util_tpu_torch.ops.cols_select import cols_select, cols_select_plain
+
+    got = cols_select(*planes, k=k, gy=gy, gz=gz, cap=cap, chunk=chunk, voxel_unique=voxel_unique)
+    want = cols_select_plain(*planes, k=k, gy=gy, gz=gz, cap=cap, chunk=chunk, voxel_unique=voxel_unique)
+    torch.cuda.synchronize()
+    off = 4 * gz + 4
+    occ = planes[0][off:off + gy * gz] < F32_MAX / 2
+    cut = r_cut(cell)
+    check(torch.equal((got[1] < cut)[occ], (want[1] < cut)[occ]),
+          f"kernel 4 ({what}): the covered/uncovered classification differs from its plain version")
+    cov = occ & (want[1] < cut)
+    check(same_bits(got[1][cov], want[1][cov]), f"kernel 4 ({what}): kth differs on covered slots")
+    check(torch.allclose(got[0][cov], want[0][cov], rtol=1e-5, atol=1e-5),
+          f"kernel 4 ({what}): sums differ on covered slots: max abs {maxabs(got[0][cov], want[0][cov])}")
+    check(not got[0][~occ].any() and bool((got[1][~occ] == F32_MAX).all()),
+          f"kernel 4 ({what}): empty slots must read sums 0, kth F32_MAX")
+    return got, want, occ, cov
+
+
+def subsequence_mask(got_rows, rows, what):
+    """Which rows an order-keeping result kept, matched by their bytes in
+    order (equal rows, such as duplicate points, match the first unmatched
+    one)."""
+    import numpy as np
+
+    mask = np.zeros(len(rows), bool)
+    j = 0
+    for i, r in enumerate(rows):
+        if j < len(got_rows) and r.tobytes() == got_rows[j].tobytes():
+            mask[i] = True
+            j += 1
+    check(j == len(got_rows), f"{what}: the result is not an ordered subsequence of the input")
+    return mask
+
+
+def wall_with_copies(sampling, seed=WALL_SEED):
+    """[n, 7] float32 (x, y, z, r, g, b, tile): WALL_N points of a wall,
+    WALL_SIZE m in y and z with WALL_NOISE m of depth noise in x, in the
+    row order a camera scans them, then WALL_COPIES copies of a point in its
+    middle.  ``sampling`` "camera": a 200 x 200 pixel grid with half the
+    noise across it; "uniform": uniform in y and z."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, side = WALL_N, int(round(WALL_N ** 0.5))
+    if sampling == "camera":
+        yy, zz = np.meshgrid((np.arange(side) + 0.5) * WALL_SIZE[0] / side,
+                             (np.arange(side) + 0.5) * WALL_SIZE[1] / side, indexing="xy")
+        yz = np.stack([yy.ravel(), zz.ravel()], -1) + rng.normal(0.0, WALL_NOISE / 2, (n, 2))
+    else:
+        yz = rng.uniform(0.0, 1.0, (n, 2)) * WALL_SIZE
+        yz = yz[np.lexsort((yz[:, 0], np.floor(yz[:, 1] / 0.01)))]
+    wall = np.concatenate([rng.normal(0.0, WALL_NOISE, (n, 1)), yz], -1)
+    pts = np.concatenate([wall, np.repeat(wall[n // 2 + side // 2][None], WALL_COPIES, 0)])
+    mat = np.zeros((len(pts), 7), np.float32)
+    mat[:, :3] = pts
+    mat[:, 3:6] = rng.integers(0, 256, (len(pts), 3))
+    return mat
 
 
 def oracle(xyz64, k=K, mult=MULT):
@@ -526,7 +619,7 @@ def ops_phase(c):
     import cwipc_util_tpu_torch as port
     import cwipc_util_tpu_torch.ops as port_ops
     from cwipc_util_tpu_torch import filters
-    from cwipc_util_tpu_torch.ops import compaction, outliers, voxelize
+    from cwipc_util_tpu_torch.ops import cols_knn, compaction, outliers, voxelize
     from cwipc_util_tpu_torch.ops.cols_select import cols_select
     from cwipc_util_tpu_torch.ops.compact_kernel import compact_kernel_cm
     from cwipc_util_tpu_torch.ops.segment_reduce import segment_reduce_sorted
@@ -630,12 +723,29 @@ def ops_phase(c):
             t_0 = now
         return pcs, flts, stage_s
 
+    grids = []
+
+    def recording(xyz_, count_, cell_, k_, **kw):
+        grids.append((xyz_, count_, cell_, k_, kw))
+        return cols_knn.cols_knn_mean_distance(xyz_, count_, cell_, k_, **kw)
+
     torch.cuda.synchronize()
     for f in kernels:
         f.launches = 0
-    pcs, flts, _ = run_frame()
-    torch.cuda.synchronize()
+    port_ops.cols_knn_mean_distance = recording
+    try:
+        pcs, flts, _ = run_frame()
+        torch.cuda.synchronize()
+    finally:
+        port_ops.cols_knn_mean_distance = cols_knn.cols_knn_mean_distance
     launches = {f.__name__: f.launches for f in kernels}
+    check(len(grids) == launches["cols_select"], f"filter remove_outliers: {len(grids)} column grids,"
+          f" {launches['cols_select']} launches of kernel 4")
+    for xyz_, count_, cell_, k_, kw in grids:
+        g_planes = cols_knn._cols_build(xyz_, count_, cell_, gy=kw["gy"], gz=kw["gz"], cap=kw["cap"], chunk=CHUNK,
+                                        vmin_override=kw["vmin_override"], want_orig=False)[:3]
+        hold_select(g_planes, cell_, f"filter remove_outliers, grid {kw['gy']} x {kw['gz']} x {kw['cap']}", k_,
+                    kw["gy"], kw["gz"], kw["cap"], chunk=64)
     check(all(launches[f.__name__] >= 1 for f in kernels[:3]),
           f"kernels 1, 3 and 4 must run on the filter path: {launches}")
     arrs = [p.get_numpy_array() for p in pcs]
@@ -672,12 +782,120 @@ def ops_phase(c):
           and np.allclose(an.sum_avg, p5.mean(0), atol=1e-6), "filter analyze: statistics differ")
     print(f"{c.card} phase 14: filter frame {descs[:3]}, transform44(seed-42 perturbation), {descs[4:]}:"
           f" points per stage {sizes}; voxelize {nvox} voxels (centroids within {verr}); remove_outliers"
-          f" equal to the float64 oracle ({f_flips} flips near the threshold); crop, transform44 and colorize"
+          f" equal to the float64 oracle ({f_flips} flips near the threshold; kernel 4 held to its plain version on"
+          f" grids {[(kw['gy'], kw['gz'], kw['cap']) for *_, kw in grids]}); crop, transform44 and colorize"
           f" equal to numpy; ops.transform44 on the card within {terr} of float64; launches {launches}")
     an.statistics()
     print(f"{c.card} phase 14 ok {c.lap()}")
     out.update(run_frame=run_frame, descs=descs, launches=launches)
     return out
+
+
+def device_and_host(c, what, fn, unit):
+    """Print fn's device time a call by kernel (torch.profiler over 10
+    calls) and its host time a call (50 calls enqueued, then one
+    synchronize)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    per = [(e.key, e.count // 10, e.device_time_total / 10) for e in prof.key_averages() if e.device_time_total > 0]
+    torch.cuda.synchronize()
+    t_0 = time.perf_counter()
+    for _ in range(50):
+        fn()
+    host_us = (time.perf_counter() - t_0) / 50 * 1e6
+    torch.cuda.synchronize()
+    device = f"{sum(us for _, _, us in per)} us device time a {unit}" if per else "device time not measured"
+    print(f"{c.card} {what}: {device} (by kernel: launches, us {[(k[:48], n_, us) for k, n_, us in per]});"
+          f" host {host_us} us a call")
+
+
+def host_us(fn, n=200):
+    """Host microseconds a call of fn, n calls back to back between two
+    synchronizes."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t_0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t_0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def compact_host_phase(c):
+    """Kernel 3's call split: the host microseconds of each part of the
+    wrapper (its checks, its one allocation, the device guard, the
+    pointers and stream, the ctypes call that makes the memset and the
+    launch) next to what the earlier wrapper spent on the same parts (four
+    allocations, a device context, ctypes.c_void_p arguments), and the
+    device time by kernel of the wrapper and of ``packed[keep]``."""
+    import ctypes
+
+    import torch
+
+    from cwipc_util_tpu_torch import _kernels
+    from cwipc_util_tpu_torch.ops.compact_kernel import TILE, compact_kernel_cm, compact_plan
+
+    x, y, z, rgba, cnt = c.down
+    keep = c.keep
+    n, dev = x.shape[0], x.device
+    lib = _kernels.load()
+    packed = torch.stack([x.view(torch.int32), y.view(torch.int32), z.view(torch.int32), rgba], dim=-1)
+    work = torch.empty(compact_plan(n).words, dtype=torch.int32, device=dev)
+    ins = (x, y, z, rgba, keep, cnt)
+
+    def checks():
+        for name, t in (("x", x), ("y", y), ("z", z)):
+            _kernels.expect("compact", name, t, torch.float32, (n,))
+        _kernels.expect("compact", "rgba", rgba, torch.int32, (n,))
+        _kernels.expect("compact", "keep", keep, torch.bool, (n,))
+        _kernels.expect("compact", "count", cnt, torch.int32, ())
+        _kernels.route("compact", *ins)
+
+    def guard():
+        with _kernels.device_guard(x):
+            pass
+
+    def context_before():
+        with torch.cuda.device(dev):
+            pass
+
+    def pointers():
+        return [t.data_ptr() for t in ins] + [work.data_ptr(), _kernels.stream(x)]
+
+    def pointers_before():
+        return ([ctypes.c_void_p(t.data_ptr()) for t in (*ins, work, work, work, work, work, work, work)]
+                + [ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)])
+
+    args = [t.data_ptr() for t in ins[:6]] + [n, work.data_ptr(), _kernels.stream(x)]
+    ntiles = -(-n // TILE)
+    parts = {
+        "checks": checks,
+        "allocation (one buffer)": lambda: torch.empty(compact_plan(n).words, dtype=torch.int32, device=dev),
+        "allocations before (four)": lambda: (
+            torch.empty(ntiles, dtype=torch.int32, device=dev), torch.empty(ntiles, dtype=torch.int32, device=dev),
+            torch.empty((4, n), dtype=torch.int32, device=dev), torch.empty((), dtype=torch.int32, device=dev)),
+        "device guard": guard,
+        "device context before": context_before,
+        "pointers and stream": pointers,
+        "pointers and stream before (ctypes.c_void_p)": pointers_before,
+        "ctypes call (memset and launch)": lambda: lib.cwipc_compact(*args),
+        "the whole wrapper": lambda: compact_kernel_cm(x, y, z, rgba, keep, cnt),
+        "packed[keep]": lambda: packed[keep],
+    }
+    split = {name: host_us(fn) for name, fn in parts.items()}
+    print(f"{c.card} kernel 3 at n={n}, host us a call by part: {split}")
+    for name, fn in (("kernel 3", parts["the whole wrapper"]), ("packed[keep]", parts["packed[keep]"])):
+        device_and_host(c, f"{name} at n={n}", fn, "call")
 
 
 def times_phase(c, s12, s13, s14, k4):
@@ -708,33 +926,16 @@ def times_phase(c, s12, s13, s14, k4):
           f" sort, passes run {s12['passes']}); plain PyTorch {pms} ms; torch.sort + 2 gathers {lms} ms"
           f" ({'kernel 6 faster' if kms < lms else 'kernel 6 slower'}); in turns (plain, torch.sort + gathers,"
           f" kernel, kernel, torch.sort + gathers, plain) {runs}; bound {bms} ms ({bby}: {nbytes} bytes)")
-    # where the two spend it: device time per sort by kernel (torch.profiler)
-    # and host time per call (50 calls enqueued, then one synchronize)
-    from torch.profiler import ProfilerActivity, profile
-
+    # where the two spend it: device time per sort by kernel and host time per call
     for name, fn in (("kernel 6", k6), ("torch.sort + 2 gathers", library_sort)):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                fn()
-            torch.cuda.synchronize()
-        per = [(e.key, e.count // 10, e.device_time_total / 10) for e in prof.key_averages() if e.device_time_total > 0]
-        torch.cuda.synchronize()
-        t_0 = time.perf_counter()
-        for _ in range(50):
-            fn()
-        host_us = (time.perf_counter() - t_0) / 50 * 1e6
-        torch.cuda.synchronize()
-        device = f"{sum(us for _, _, us in per)} us device time a sort" if per else "device time not measured"
-        print(f"{c.card} {name} at {mkey.shape[0]} x 3: {device} (by kernel: launches, us"
-              f" {[(k[:48], n_, us) for k, n_, us in per]}); host {host_us} us a call")
+        device_and_host(c, f"{name} at {mkey.shape[0]} x 3", fn, "sort")
     records.append({
         "name": "sort_by_key", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/sort.cu",
         "replaces": "cwipc_util_tpu/ops/pallas_sort.py:169", "launches": s12["launches"],
         "max_abs_err": s12["err"], "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
         "library_ms": lms,
     })
+    compact_host_phase(c)
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                            capture_output=True, text=True, check=True).stdout.split()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -762,8 +963,10 @@ def times_phase(c, s12, s13, s14, k4):
     print(f"{c.card} the int32 issue rate: {INT32_LANES} lanes x {sms} SMs x {clock} MHz = {int32_rate} /s;"
           f" {steps} element-steps a run")
     k4_steps = k4["pairs"] * K4_MAX_STEPS
-    print(f"{c.card} kernel 4's scan yardstick: {k4['pairs']} ring pairs x at most {K4_MAX_STEPS} bisection"
-          f" steps = {k4_steps} element-steps, {k4_steps / rates['i32'] * 1e3} ms at kernel 7's i32 rate"
+    k4_run = k4["pairs"] * k4["scans"]
+    print(f"{c.card} kernel 4's scan yardstick: {k4['pairs']} ring pairs x at most {K4_MAX_STEPS} halving"
+          f" steps = {k4_steps} element-steps, {k4_steps / rates['i32'] * 1e3} ms at kernel 7's i32 rate; x the"
+          f" {k4['scans']} scans a query kernel 4 ran = {k4_run} element-steps, {k4_run / rates['i32'] * 1e3} ms"
           f" (kernel 4 {k4['ms']} ms)")
     for name, (buf_, cell) in ((k, v) for k, v in s14.items() if k.endswith("mm")):
         ms = time_ms(lambda: voxelize.downsample(buf_, cell, exact_keys=True), reps=5, warm=1)
@@ -811,7 +1014,7 @@ def main() -> int:
     from cwipc_util_tpu_torch import _kernels
     from cwipc_util_tpu_torch.models.synthetic import _generate_host
     from cwipc_util_tpu_torch.ops import chain, cols_knn, compaction, outliers, voxelize
-    from cwipc_util_tpu_torch.ops.cols_select import cols_select, cols_select_plain
+    from cwipc_util_tpu_torch.ops.cols_select import UNION_COLS, cols_select, cols_select_plain, select_plan
     from cwipc_util_tpu_torch.ops.compact_kernel import compact_kernel_cm, compact_plain_cm
     from cwipc_util_tpu_torch.ops.segment_reduce import (
         segment_reduce_sorted,
@@ -949,30 +1152,6 @@ def main() -> int:
     ex_x, ex_y, ex_z, ex_rgba, ex_cnt = voxelize.downsample_cm(buf, CELL, EX_OCAP)
     ex_xyz = torch.stack([ex_x, ex_y, ex_z], dim=-1)
 
-    def maxabs(a, b):
-        return float((a - b).abs().max()) if a.numel() else 0.0
-
-    def r_cut(cell):
-        return float(np.float32(4.0) * np.float32(cell) * np.float32(1.0 - 1e-6))
-
-    def select_case(planes, cell, what, k, gy, gz, cap, voxel_unique=False):
-        got = cols_select(*planes, k=k, gy=gy, gz=gz, cap=cap, chunk=CHUNK, voxel_unique=voxel_unique)
-        want = cols_select_plain(*planes, k=k, gy=gy, gz=gz, cap=cap, chunk=CHUNK, voxel_unique=voxel_unique)
-        torch.cuda.synchronize()
-        off = 4 * gz + 4
-        occ = planes[0][off:off + gy * gz] < F32_MAX / 2
-        cut = r_cut(cell)
-        check(torch.equal((got[1] < cut)[occ], (want[1] < cut)[occ]),
-              f"kernel 4 ({what}): the covered/uncovered classification differs from its plain version")
-        cov = occ & (want[1] < cut)
-        check(same_bits(got[1][cov], want[1][cov]), f"kernel 4 ({what}): kth differs on covered slots")
-        check(torch.allclose(got[0][cov], want[0][cov], rtol=1e-5, atol=1e-5),
-              f"kernel 4 ({what}): sums differ on covered slots:"
-              f" max abs {maxabs(got[0][cov], want[0][cov])}")
-        check(not got[0][~occ].any() and bool((got[1][~occ] == F32_MAX).all()),
-              f"kernel 4 ({what}): empty slots must read sums 0, kth F32_MAX")
-        return got, want, occ, cov
-
     def planes_of(points, n, cell, gy, gz, cap):
         pts = np.zeros((max(1024, 1 << int(np.ceil(np.log2(max(n, 2))))), 3), np.float32)
         pts[:n] = points
@@ -983,14 +1162,14 @@ def main() -> int:
     ex_xs, ex_ys, ex_zs, _, ex_valid, drop_ring, point_slot = cols_knn._cols_build(
         ex_xyz, ex_cnt, CELL, gy=GY, gz=GZ, cap=GCAP, chunk=CHUNK, want_orig=False)
     ex_planes = (ex_xs, ex_ys, ex_zs)
-    (sel, sel_kth), (psel, psel_kth), occ, cov = select_case(ex_planes, CELL, "bench planes", K, GY, GZ, GCAP, True)
+    (sel, sel_kth), (psel, psel_kth), occ, cov = hold_select(ex_planes, CELL, "bench planes", K, GY, GZ, GCAP, True)
     k4_err = max(maxabs(sel[cov], psel[cov]), maxabs(sel_kth[cov], psel_kth[cov]))
     n_occ, n_cov = int(occ.sum()), int(cov.sum())
     check(n_occ == int(ex_cnt) == WANT_VOXELS, f"kernel 4: {n_occ} occupied slots, expected {WANT_VOXELS}")
     # edge cases
     cell = 0.02
     e_planes = planes_of(np.zeros((0, 3), np.float32), 0, cell, 24, 24, 12)
-    select_case(e_planes, cell, "count 0", 8, 24, 24, 12)
+    hold_select(e_planes, cell, "count 0", 8, 24, 24, 12)
     vu = []  # voxel-unique columns of 1-8 points, one column at the full cap of 28
     for iy in range(3, 28):
         for iz in range(3, 20):
@@ -999,16 +1178,24 @@ def main() -> int:
                 vu.append((np.array([ix, iy, iz]) + gen.random(3) * 0.9) * cell)
     f_planes = planes_of(np.asarray(vu, np.float32), len(vu), cell, 32, 24, 28)
     check(int((f_planes[0] < F32_MAX / 2).sum(1).max()) == 28, "kernel 4: the full-cap column is missing")
-    select_case(f_planes, cell, "a column at full cap", 30, 32, 24, 28, True)
+    hold_select(f_planes, cell, "a column at full cap", 30, 32, 24, 28, True)
     few = np.array([[3, 3, 3], [3, 4, 3], [4, 3, 3], [3, 3, 4], [5, 5, 5], [4, 4, 4]], np.float32) * cell
-    (_, few_kth), _, few_occ, _ = select_case(planes_of(few, 6, cell, 16, 16, 8), cell, "fewer than k", 8, 16, 16, 8)
+    (_, few_kth), _, few_occ, _ = hold_select(planes_of(few, 6, cell, 16, 16, 8), cell, "fewer than k", 8, 16, 16, 8)
     check(int(few_occ.sum()) == 6 and bool((few_kth[few_occ] == F32_MAX).all()),
           "kernel 4: a query with fewer than k candidates must read kth F32_MAX (uncovered)")
     h = 1.0 / 64  # an exact lattice: ties of 6, 12 and 8 equal distances
     lat = np.stack(np.meshgrid(*(np.arange(a) for a in (8, 16, 16)), indexing="ij"), -1).reshape(-1, 3) * h
-    _, _, _, tie_cov = select_case(planes_of(lat.astype(np.float32), len(lat), 2 * h, 8, 8, 32),
+    _, _, _, tie_cov = hold_select(planes_of(lat.astype(np.float32), len(lat), 2 * h, 8, 8, 32),
                                    2 * h, "duplicate distances", 10, 8, 8, 32)
     check(int(tie_cov.sum()) > 1000, "kernel 4: the lattice case has too few covered queries")
+    # dense columns of 60 points: strip unions of up to 144 * 60 candidates, staged in passes
+    lat = np.stack(np.meshgrid(np.arange(60) * 0.5, np.arange(20), np.arange(20), indexing="ij"), -1).reshape(-1, 3)
+    lat = ((lat + gen.random(lat.shape) * 0.2) * cell).astype(np.float32)
+    d_planes = planes_of(lat, len(lat), cell, 32, 32, 64)
+    d_occ = (d_planes[0] < F32_MAX / 2).sum(1)
+    check(int(d_occ.max()) == 60 and UNION_COLS * 60 > select_plan(64).stage,
+          "kernel 4: the dense case must fill columns of 60 and take passes")
+    hold_select(d_planes, cell, "dense columns, staged in passes", K, 32, 32, 64)
     split = GY * GZ // 2 + 1  # not a multiple of anything the kernel uses
     a = cols_select(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP, row0=0, nrows=split)
     b = cols_select(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP, row0=split)
@@ -1016,7 +1203,7 @@ def main() -> int:
     check(same_bits(torch.cat([a[0], b[0]]), sel) and same_bits(torch.cat([a[1], b[1]]), sel_kth),
           "kernel 4: two row ranges concatenated differ from the full run")
     print(f"{card} phase 2: kernel 4 holds its contract against its plain version on the bench planes"
-          f" ({n_occ} occupied slots, {n_cov} covered, max abs err {k4_err}) and 5 edge cases")
+          f" ({n_occ} occupied slots, {n_cov} covered, max abs err {k4_err}) and 6 edge cases")
 
     # kernel 3 on the exact chain's rows (1<<18) and its exact keep masks
     md_c, unc = cols_knn._cols_finish(sel, sel_kth, point_slot, ex_valid, drop_ring, CELL,
@@ -1252,7 +1439,7 @@ def main() -> int:
                 xyz_, count_, cell_, gy=kw["gy"], gz=kw["gz"], cap=kw["cap"], chunk=CHUNK,
                 vmin_override=kw["vmin_override"], want_orig=False)
             g_planes = (g_xs, g_ys, g_zs)
-            select_case(g_planes, cell_, f"{what}, grid {kw['gy']} x {kw['gz']} x {kw['cap']}", k_,
+            hold_select(g_planes, cell_, f"{what}, grid {kw['gy']} x {kw['gz']} x {kw['cap']}", k_,
                         kw["gy"], kw["gz"], kw["cap"])
         print(f"{card} phase 6: cwipc_remove_outliers(perTile={per_tile}) on {len(arr)} points kept"
               f" {len(got)} (oracle {n_want}, {n_flips} flips near the threshold), kernel 4 launched"
@@ -1261,6 +1448,41 @@ def main() -> int:
         clean.free()
     for p_ in (pc, down):
         p_.free()
+    # a merged capture's stacked points: a wall with 200 copies of one of its
+    # points, whose grid takes a cap over 160; sampled as a camera's pixels
+    # (the grid covers most queries) and uniformly (the brute-force fixup
+    # takes most of them)
+    for sampling in ("camera", "uniform"):
+        wall = wall_with_copies(sampling)
+        grids = []
+        port_ops.cols_knn_mean_distance = recording
+        cols_select.launches = 0
+        try:
+            wpc = port.cwipc_from_numpy_matrix(wall, 0, device=dev)
+            clean = port.cwipc_remove_outliers(wpc, K, MULT, False)
+            torch.cuda.synchronize()
+        finally:
+            port_ops.cols_knn_mean_distance = cols_knn.cols_knn_mean_distance
+        what = f"cwipc_remove_outliers on the {sampling}-sampled wall with copies"
+        check(len(grids) == 1 == cols_select.launches, f"{what}: {len(grids)} column grids,"
+              f" {cols_select.launches} launches of kernel 4")
+        xyz_, count_, cell_, k_, kw = grids[0]
+        check(kw["cap"] > 160, f"{what}: the grid's cap is {kw['cap']}, not over 160")
+        rows = wpc.get_numpy_array()
+        got = clean.get_numpy_array()
+        mask = subsequence_mask(got, rows, what)
+        md_w, thr_w = oracle(wall[:, :3].astype(np.float64))
+        w_flips = near_flips(mask, md_w <= thr_w, md_w, thr_w, what)
+        g_planes = cols_knn._cols_build(xyz_, count_, cell_, gy=kw["gy"], gz=kw["gz"], cap=kw["cap"],
+                                        chunk=CHUNK, vmin_override=kw["vmin_override"], want_orig=False)[:3]
+        _, _, w_occ, w_cov = hold_select(g_planes, cell_, f"{what}, grid {kw['gy']} x {kw['gz']} x {kw['cap']}",
+                                         k_, kw["gy"], kw["gz"], kw["cap"], chunk=8)
+        print(f"{card} phase 6: {what}: {len(rows)} points, grid {kw['gy']} x {kw['gz']} columns of cap"
+              f" {kw['cap']} (cell {cell_}), {int(w_cov.sum())} of {int(w_occ.sum())} queries covered; kept"
+              f" {len(got)} (oracle {int((md_w <= thr_w).sum())}, {w_flips} flips near the threshold); kernel 4"
+              f" held to its plain version on the grid")
+        for p_ in (wpc, clean):
+            p_.free()
     print(f"{card} phase 6 ok {lap()}")
 
     # ---- phase 7: times of the exact chain and of kernel 4 ----------------
@@ -1326,6 +1548,38 @@ def main() -> int:
     print(f"{card} kernel cols_select: {kms} ms; plain PyTorch {pms} ms; in turns (plain, kernel, kernel, plain)"
           f" {k4_runs}; bound {k4_bms} ms ({k4_bby}: {k4_bytes} bytes, {k4_pairs} ring pairs); no one PyTorch call"
           f" computes it")
+    # kernel 4's phase profile (clock64 spans of each block, summed over the
+    # blocks) beside the column-per-block design it replaced, on the same planes
+    from cwipc_util_tpu_torch.ops import cols_select_probe
+    from cwipc_util_tpu_torch.ops.cols_select import PROF_FIELDS, PROF_WORDS
+
+    prof = torch.zeros(PROF_WORDS, dtype=torch.int64, device=dev)
+    cols_select(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP, prof=prof)
+    col_prof = torch.zeros(len(cols_select_probe.PROF_FIELDS), dtype=torch.int64, device=dev)
+
+    def k4_column(prof_=col_prof):
+        return cols_select_probe.column_probe(*ex_planes, k=K, gy=GY, gz=GZ, cap=GCAP, prof=prof_)
+
+    col = k4_column()
+    torch.cuda.synchronize()
+    cut = r_cut(CELL)
+    check(torch.equal((col[1] < cut)[occ], (psel_kth < cut)[occ]) and same_bits(col[1][cov], psel_kth[cov])
+          and torch.allclose(col[0][cov], psel[cov], rtol=1e-5, atol=1e-5),
+          "the column-per-block probe does not hold kernel 4's contract on the bench planes")
+    for name, p_, fields in (("kernel 4 (strip)", prof, PROF_FIELDS),
+                             ("the column-per-block probe", col_prof, cols_select_probe.PROF_FIELDS)):
+        cyc = dict(zip(fields, p_.tolist()))
+        spans = [f for f in fields if f.endswith("cycles")]
+        total = sum(cyc[f] for f in spans)
+        print(f"{card} {name} phase profile on the bench planes: {cyc}; shares of the block cycles"
+              f" {({f: cyc[f] / total for f in spans})}; {total / cyc['blocks']} cycles a block")
+    k4_scans = prof[5].item() / prof[6].item()
+    print(f"{card} kernel 4 (strip): {k4_scans} scans a query over {prof[6].item()}"
+          f" queries; {prof[7].item()} of {prof[4].item()} blocks staged in passes")
+    scratch_prof = torch.zeros_like(col_prof)
+    s_ms, c_ms, _, sc_runs = in_turns(k4_kernel, lambda: k4_column(scratch_prof), plain_reps=REPS)
+    print(f"{card} kernel 4 (strip) {s_ms} ms against the column-per-block probe {c_ms} ms on the bench planes;"
+          f" in turns (probe, strip, strip, probe) {sc_runs}")
     record.append({
         "name": "cols_select", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/cols_select.cu",
         "replaces": "cwipc_util_tpu/ops/pallas_cols_select.py:502", "launches": ex_launches["cols_select"],
@@ -1714,11 +1968,11 @@ def main() -> int:
     # ---- phases 12-15: kernels 6 and 7, the ops and filter path, times -------
     from types import SimpleNamespace
 
-    ctx = SimpleNamespace(dev=dev, card=card, lap=lap, t=t, buf=buf, pts=pts, down=(x, y, z, rgba, cnt))
+    ctx = SimpleNamespace(dev=dev, card=card, lap=lap, t=t, buf=buf, pts=pts, down=(x, y, z, rgba, cnt), keep=keep)
     s12 = sort_phase(ctx)
     s13 = scan_phase(ctx)
     s14 = ops_phase(ctx)
-    k4 = {"pairs": k4_pairs, "ms": next(r["ms"] for r in record if r["name"] == "cols_select")}
+    k4 = {"pairs": k4_pairs, "scans": k4_scans, "ms": next(r["ms"] for r in record if r["name"] == "cols_select")}
     record += times_phase(ctx, s12, s13, s14, k4)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

@@ -20,10 +20,15 @@ source, all started together, then one link with the same flags:
 
 Each C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :func:`check` raises if it is not 0.
+A wrapper's host work before its launch is on every call's path, so the
+helpers here stay cheap: pointers and the stream go to ctypes as plain
+ints, and :func:`device_guard` switches devices only where the tensor's
+is not already current.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -53,10 +58,12 @@ _SIGNATURES = {
     "cwipc_segment_reduce": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # x, y, z, count, n, window, kk, md, stream
     "cwipc_window_knn": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
-    # x, y, z, rgba, keep, count, n, tile_counts, tile_offsets, ox, oy, oz, orgba, nkept, stream
-    "cwipc_compact": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P),
-    # xs, ys, zs, cap, gz, k, row0, nrows, sums, kth, stream
-    "cwipc_cols_select": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # x, y, z, rgba, keep, count, n, work, stream
+    "cwipc_compact": (_P, _P, _P, _P, _P, _P, _I, _P, _P),
+    # xs, ys, zs, cap, gz, k, row0, nrows, stage, bounds, sums, kth, prof, stream
+    "cwipc_cols_select": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # xs, ys, zs, cap, gz, k, row0, nrows, sums, kth, prof, stream (a probe of kernel 4's earlier design)
+    "cwipc_cols_select_column_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # rx, ry, rz, qx, qy, qz, cap_r, cap_q, gz, gyz, stage, d2, cid, stream
     "cwipc_nn_select": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # keys, n, npay, 4 payloads in, keys_out, 4 payloads out, keys_a, keys_b, idx_a, idx_b,
@@ -137,6 +144,8 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library once per process."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -157,12 +166,17 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise CwipcError(f"{what}: CUDA error {err} at launch: {msg}")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on the tensor's device."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def device_guard(t: torch.Tensor):
+    """A context that makes the tensor's CUDA device current for a launch:
+    none where it already is."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def route(what: str, *tensors: torch.Tensor) -> str:

@@ -4,78 +4,114 @@
 // :192).  Keeps the points i with keep[i] != 0 and i < count, in order:
 // the four 32-bit words of each kept point (x, y, z as raw float bits, and
 // rgba) go to its rank, so every payload (inf, nan, -0.0, subnormals)
-// passes bit for bit.  Slots from the kept count on are zeroed, and the
-// kept count goes to a device scalar.
+// passes bit for bit.  Slots from the kept count on are zero, and the kept
+// count goes to a device scalar; nothing waits for the host.
 //
 // Bound on the H100: memory.  17 bytes read and up to 16 written per point
 // (under 8 MB at the chain's 229,376 points).  The TPU kernel placed kept
 // points with one-hot matmuls into a ring it flushed in order, because a
-// TPU has no scatter; here the rank comes from the same three-launch scan
-// as the segmented reduce (scan.cuh), and each kept point writes its words
-// directly.  Each output slot is written by exactly one thread: below the
-// kept count by the point of that rank, from it on by the thread of that
-// index (with zeros).
+// TPU has no scatter.  Here one call is a memset and one launch:
+//   1. the memset zeroes the one work buffer: the outputs [4][n] (so the
+//      slots no kept point reaches read zero), the kept count, a tile
+//      counter and one 64-bit look-back status word per tile;
+//   2. a block of TILE threads takes the next tile of TILE points from the
+//      tile counter (so every tile it waits on belongs to a block that is
+//      already running), counts and ranks its kept points with one block
+//      scan, publishes its count, and resolves its offset by decoupled
+//      look-back: warp 0 reads the status words of the 32 tiles before it
+//      at once and stops at the nearest that holds an inclusive prefix.  It
+//      publishes its own inclusive prefix, the last tile writes the kept
+//      count, and each kept point writes its four words to its rank.
+// A status word holds a flag (the tile's own count, or the count of it and
+// every earlier tile) and the count, in one 64-bit word, so a reader that
+// sees the flag sees the count.
 #include <cuda_runtime.h>
 
-#include "scan.cuh"
+#include "scan.cuh"  // TILE, block_exclusive_scan, CWIPC_RETURN_IF_ERROR
 
 namespace {
 
-__device__ __forceinline__ int kept_at(const unsigned char* __restrict__ keep, int i, int n, int count) {
-  return i < n && i < count && keep[i] != 0;
-}
+constexpr unsigned long long FLAG_AGG = 1ull << 62;     // the tile's own count
+constexpr unsigned long long FLAG_PREFIX = 1ull << 63;  // the count of this and every earlier tile
+constexpr unsigned long long VALUE_MASK = 0xffffffffull;
+constexpr unsigned FULL = 0xffffffffu;
 
 __global__ void __launch_bounds__(TILE)
-count_kept(const unsigned char* __restrict__ keep, const int* __restrict__ count_ptr, int n,
-           int* __restrict__ tile_counts) {
-  const int i = blockIdx.x * TILE + threadIdx.x;
-  const int c = __syncthreads_count(kept_at(keep, i, n, *count_ptr));
-  if (threadIdx.x == 0) tile_counts[blockIdx.x] = c;
-}
+compact_lookback(const int* __restrict__ x, const int* __restrict__ y, const int* __restrict__ z,
+                 const int* __restrict__ rgba, const unsigned char* __restrict__ keep,
+                 const int* __restrict__ count_ptr, int n, int* __restrict__ out, int* __restrict__ nkept,
+                 int* __restrict__ counter, unsigned long long* status) {
+  __shared__ int tile_id;
+  __shared__ int exclusive;
+  if (threadIdx.x == 0) tile_id = atomicAdd(counter, 1);
+  __syncthreads();
+  const int tile = tile_id;
+  const int i = tile * TILE + threadIdx.x;
+  const int kept = i < n && i < *count_ptr && keep[i] != 0;
+  int total;
+  const int before = block_exclusive_scan(kept, &total);
 
-__global__ void __launch_bounds__(TILE)
-scatter_kept(const int* __restrict__ x, const int* __restrict__ y, const int* __restrict__ z,
-             const int* __restrict__ rgba, const unsigned char* __restrict__ keep,
-             const int* __restrict__ count_ptr, int n, const int* __restrict__ tile_offsets,
-             const int* __restrict__ nkept, int* __restrict__ ox, int* __restrict__ oy,
-             int* __restrict__ oz, int* __restrict__ orgba) {
-  const int i = blockIdx.x * TILE + threadIdx.x;
-  const int k = kept_at(keep, i, n, *count_ptr);
-  int unused;
-  const int before = block_exclusive_scan(k, &unused);
-  if (i >= n) return;
-  if (k) {
-    const int r = tile_offsets[blockIdx.x] + before;
-    ox[r] = x[i];
-    oy[r] = y[i];
-    oz[r] = z[i];
-    orgba[r] = rgba[i];
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    volatile unsigned long long* st = status;
+    if (lane == 0) st[tile] = (tile == 0 ? FLAG_PREFIX : FLAG_AGG) | static_cast<unsigned long long>(total);
+    int prefix = 0;
+    if (tile > 0) {
+      // lane l reads tile hi - l: the nearest first
+      for (int hi = tile - 1;; hi -= 32) {
+        const int t = hi - lane;
+        unsigned long long w = FLAG_PREFIX;  // below tile 0: a prefix of 0
+        if (t >= 0) {
+          do {
+            w = st[t];
+          } while ((w & (FLAG_AGG | FLAG_PREFIX)) == 0);
+        }
+        const unsigned has_prefix = __ballot_sync(FULL, (w & FLAG_PREFIX) != 0);
+        const int stop = has_prefix != 0 ? __ffs(has_prefix) - 1 : 31;
+        int v = lane <= stop ? static_cast<int>(w & VALUE_MASK) : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+        prefix += v;
+        if (has_prefix != 0) break;
+      }
+      if (lane == 0) st[tile] = FLAG_PREFIX | static_cast<unsigned long long>(prefix + total);
+    }
+    if (lane == 0) {
+      exclusive = prefix;
+      if (tile == gridDim.x - 1) *nkept = prefix + total;
+    }
   }
-  if (i >= *nkept) {
-    ox[i] = 0;
-    oy[i] = 0;
-    oz[i] = 0;
-    orgba[i] = 0;
+  __syncthreads();
+  if (kept) {
+    const int r = exclusive + before;
+    out[r] = x[i];
+    out[static_cast<size_t>(n) + r] = y[i];
+    out[2 * static_cast<size_t>(n) + r] = z[i];
+    out[3 * static_cast<size_t>(n) + r] = rgba[i];
   }
 }
 
 }  // namespace
 
+// work: the one buffer of ops/compact_kernel.py:compact_plan(n), in int32
+// words: the outputs x, y, z, rgba [4][n], the kept count at 4n, the tile
+// counter at 4n + 1, then from the first even word after them one 64-bit
+// status word per tile of TILE points.  One memset, then one launch.
 extern "C" int cwipc_compact(const int* x, const int* y, const int* z, const int* rgba,
-                             const unsigned char* keep, const int* count, int n,
-                             int* tile_counts, int* tile_offsets,
-                             int* ox, int* oy, int* oz, int* orgba, int* nkept, void* stream_ptr) {
+                             const unsigned char* keep, const int* count, int n, int* work,
+                             void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n < 0 || n > (0x7fffffff - 3) / 4) return static_cast<int>(cudaErrorInvalidValue);
   const int ntiles = (n + TILE - 1) / TILE;
+  const size_t status_at = (4 * static_cast<size_t>(n) + 3) / 2 * 2;
+  const size_t words = status_at + 2 * static_cast<size_t>(ntiles);
+  const cudaError_t e = cudaMemsetAsync(work, 0, words * sizeof(int), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (ntiles > 0) {
-    count_kept<<<ntiles, TILE, 0, stream>>>(keep, count, n, tile_counts);
-    CWIPC_RETURN_IF_ERROR();
-  }
-  scan_tile_counts<<<1, TILE, 0, stream>>>(tile_counts, ntiles, tile_offsets, nkept);
-  CWIPC_RETURN_IF_ERROR();
-  if (ntiles > 0) {
-    scatter_kept<<<ntiles, TILE, 0, stream>>>(x, y, z, rgba, keep, count, n, tile_offsets, nkept,
-                                              ox, oy, oz, orgba);
+    int* tail = work + 4 * static_cast<size_t>(n);
+    compact_lookback<<<ntiles, TILE, 0, stream>>>(
+        x, y, z, rgba, keep, count, n, work, tail, tail + 1,
+        reinterpret_cast<unsigned long long*>(work + status_at));
     CWIPC_RETURN_IF_ERROR();
   }
   return 0;

@@ -262,11 +262,10 @@ def bruteforce_md_subset(xyz: torch.Tensor, count: torch.Tensor, sel: torch.Tens
     cap = xyz.shape[0]
     valid = torch.arange(cap, dtype=torch.int32, device=xyz.device) < count
     sel = sel & valid
-    sq = (xyz * xyz).sum(-1)
     col_mask = torch.where(valid, 0.0, F32_MAX)
     ilist = torch.nonzero(sel).squeeze(1)  # host sync: the trip count
     md = torch.zeros(cap, dtype=torch.float32, device=xyz.device)
     for b in range(0, ilist.shape[0], block):
         bidx = ilist[b:b + block]
-        md[bidx] = _knn_sum_rows(xyz[bidx], sq[bidx], bidx, xyz, sq, col_mask, k) / float(k)
+        md[bidx] = _knn_sum_rows(xyz[bidx], bidx, xyz, col_mask, k) / float(k)
     return torch.where(sel, md, 0.0)

@@ -13,20 +13,63 @@ the plain version's; where covered, kth is bit-equal and the sum allclose
 77-column ring (the 9x9 ring minus its corners), the plain version all 81
 columns; corners lie beyond the 4-cell radius a covered query uses.
 
-Bound on the H100: most likely latency, not memory or instruction count;
-see the source.
+Bound on the H100: neither bytes nor operations; a ring kernel is bound
+by how often it restages the same columns and by the latency of its
+loads.  A first launch finds every column's occupancy bound; then a block
+stages the ring union of a strip of STRIP query columns once and spreads
+the strip's query slots over its threads, each query selecting by a
+bisection that snaps to the d2 values that occur (see the source).  Its
+host side, :func:`select_plan`, sizes the stage so that every cap fits
+the default 48 KB of shared memory, with passes over unions denser than
+that.
 A row range ``[row0, row0 + nrows)`` takes the place of the TPU kernel's
 ``tile0``/``ntiles_run``, for a caller that splits the plane.
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from .. import _kernels
 from ..core.errors import CwipcError
-from .cols_knn import _cols_select, halo
+from .cols_knn import _M, _cols_select, halo
 from .outliers import F32_MAX
+
+STRIP = 8  # query columns per block (cols_select.cu)
+THREADS = 256  # per block: the strip's query slots spread over them
+UNION_COLS = (2 * _M + 1) * (STRIP + 2 * _M)  # the strip's ring union: 9 rows of STRIP + 8 columns
+STAGE_MAX = 2048  # candidates staged per pass, 16 bytes each
+SMEM_LIMIT = 48 * 1024  # shared memory a block takes without cudaFuncAttributeMaxDynamicSharedMemorySize
+PROF_WORDS = 8  # the profile the launches add to (cols_select.cu)
+PROF_FIELDS = ("bounds cycles", "union scan cycles", "staging cycles", "selection cycles", "blocks",
+               "scans", "queries", "blocks with passes")
+
+
+@dataclass(frozen=True)
+class SelectPlan:
+    """The launch cols_select.cu gets for one cap."""
+
+    threads: int  # per block
+    stage: int  # candidates staged per pass
+    max_passes: int  # passes when every union slot is occupied
+    smem_bytes: int  # the stage (dynamic) and the union offsets, warp sums and query offsets (static)
+
+
+@functools.lru_cache(maxsize=256)
+def select_plan(cap: int) -> SelectPlan:
+    """Stage as many candidates as the strip's ring union can hold, up to
+    STAGE_MAX; denser unions take passes."""
+    if cap < 1:
+        raise CwipcError(f"select_plan: cap {cap} < 1")
+    stage = min(STAGE_MAX, UNION_COLS * cap)
+    # static: the union's staging offsets, warp sums and the strip's query
+    # offsets, rounded up to 16 bytes
+    static = -(-4 * (UNION_COLS + 1 + THREADS // 32 + STRIP + 1) // 16) * 16
+    return SelectPlan(threads=THREADS, stage=stage, max_passes=-(-UNION_COLS * cap // stage),
+                      smem_bytes=16 * stage + static)
 
 
 def cols_select_plain(xs_g, ys_g, zs_g, *, k, gy, gz, cap, row0=0, nrows=None,
@@ -48,11 +91,13 @@ def cols_select_plain(xs_g, ys_g, zs_g, *, k, gy, gz, cap, row0=0, nrows=None,
 
 
 def cols_select(xs_g, ys_g, zs_g, *, k, gy, gz, cap, row0=0, nrows=None, chunk=256,
-                voxel_unique=False):
+                voxel_unique=False, prof=None):
     """(sums, kth) f32 [nrows, cap] for the columns [row0, row0 + nrows)
     of the padded planes [prows, cap] from ``cols_knn._cols_build``
     (default: the whole [gy*gz, cap] plane).  ``chunk`` and
-    ``voxel_unique`` shape the plain version's work only."""
+    ``voxel_unique`` shape the plain version's work only.  ``prof``, an
+    int64 [PROF_WORDS] on the planes' CUDA device, receives the kernel's
+    phase profile (PROF_FIELDS) added to what it holds."""
     what = "cols_select"
     gyz = gy * gz
     nrows = gyz - row0 if nrows is None else nrows
@@ -69,15 +114,21 @@ def cols_select(xs_g, ys_g, zs_g, *, k, gy, gz, cap, row0=0, nrows=None, chunk=2
     if _kernels.route(what, xs_g, ys_g, zs_g) == "cpu":
         return cols_select_plain(xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, row0=row0,
                                  nrows=nrows, chunk=chunk, voxel_unique=voxel_unique)
-    sums = torch.empty((nrows, cap), dtype=torch.float32, device=xs_g.device)
-    kth = torch.empty_like(sums)
+    if prof is not None:
+        _kernels.expect(what, "prof", prof, torch.int64, (PROF_WORDS,))
+        _kernels.route(what, xs_g, prof)
+    # one allocation: sums, kth, then the column bounds (int32 scratch)
+    nb = nrows + 2 * off
+    work = torch.empty(2 * nrows * cap + nb, dtype=torch.float32, device=xs_g.device)
+    sums, kth = work[:2 * nrows * cap].view(2, nrows, cap).unbind(0)
     if nrows == 0:  # nothing to launch
         return sums, kth
     lib = _kernels.load()
-    P = _kernels.ptr
-    with torch.cuda.device(xs_g.device):
+    with _kernels.device_guard(xs_g):
         err = lib.cwipc_cols_select(
-            P(xs_g), P(ys_g), P(zs_g), cap, gz, k, row0, nrows, P(sums), P(kth), _kernels.stream(xs_g)
+            xs_g.data_ptr(), ys_g.data_ptr(), zs_g.data_ptr(), cap, gz, k, row0, nrows,
+            select_plan(cap).stage, work[2 * nrows * cap:].data_ptr(), sums.data_ptr(), kth.data_ptr(),
+            None if prof is None else prof.data_ptr(), _kernels.stream(xs_g),
         )
     _kernels.check(lib, err, what)
     cols_select.launches += 1

@@ -162,11 +162,11 @@ def nn_select(r_xs, r_ys, r_zs, q_xs, q_ys, q_zs, *, gy, gz, cap_r, cap_q):
     if gyz == 0:  # nothing to launch
         return d2, cid
     lib = _kernels.load()
-    P = _kernels.ptr
-    with torch.cuda.device(r_xs.device):
+    with _kernels.device_guard(r_xs):
         err = lib.cwipc_nn_select(
-            P(r_xs), P(r_ys), P(r_zs), P(q_xs), P(q_ys), P(q_zs),
-            cap_r, cap_q, gz, gyz, strip_plan(cap_r, cap_q).stage, P(d2), P(cid), _kernels.stream(r_xs),
+            r_xs.data_ptr(), r_ys.data_ptr(), r_zs.data_ptr(), q_xs.data_ptr(), q_ys.data_ptr(), q_zs.data_ptr(),
+            cap_r, cap_q, gz, gyz, strip_plan(cap_r, cap_q).stage, d2.data_ptr(), cid.data_ptr(),
+            _kernels.stream(r_xs),
         )
     _kernels.check(lib, err, what)
     nn_select.launches += 1

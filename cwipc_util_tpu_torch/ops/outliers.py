@@ -34,10 +34,8 @@ F32_MAX = 3.4028234663852886e38
 @contextlib.contextmanager
 def _full_f32_matmul():
     """Run float32 matrix products in full float32 on the card, whatever
-    the process default says.  The |a|^2 + |b|^2 - 2ab expansion of the
-    brute-force kNN cancels badly: TF32's ~1e-3 relative error on the
-    cross term shifts distances far past the keep threshold's sensitivity
-    (the JAX package pins Precision.HIGHEST for the same reason)."""
+    the process default says: TF32 keeps about three decimal digits (the
+    JAX package pins Precision.HIGHEST for its products)."""
     mm = torch.backends.cuda.matmul
     prev = mm.fp32_precision
     mm.fp32_precision = "ieee"
@@ -47,14 +45,20 @@ def _full_f32_matmul():
         mm.fp32_precision = prev
 
 
-def _knn_sum_rows(rows, row_sq, row_idx, xyz, sq, col_mask, k: int) -> torch.Tensor:
+def _knn_sum_rows(rows, row_idx, xyz, col_mask, k: int) -> torch.Tensor:
     """Sum of the k smallest distances from each of ``rows`` [B, 3] to the
     points of ``xyz`` [N, 3], excluding column ``row_idx`` (self) and the
-    columns that ``col_mask`` sets to F32_MAX."""
-    with _full_f32_matmul():
-        cross = rows @ xyz.T
-    d2 = row_sq[:, None] + sq[None, :] - 2.0 * cross
-    d2 = torch.clamp_min(d2, 0.0) + col_mask[None, :]
+    columns that ``col_mask`` sets to F32_MAX.
+
+    d2 is formed from the coordinate differences, ((dx*dx) + (dy*dy)) +
+    (dz*dz), as kernel 4 forms it.  The JAX package's |a|^2 + |b|^2 - 2ab
+    expansion (one matrix product) cancels: with coordinates a metre or two
+    from the origin it moves a distance of a few centimetres by far more
+    than float32 rounding, which flipped keep decisions away from the
+    threshold against a float64 oracle (chip_smoke.py phase 6's uniformly
+    sampled wall, whose points the fixup takes nearly all)."""
+    dx, dy, dz = (rows[:, a, None] - xyz[None, :, a] for a in range(3))
+    d2 = dx * dx + dy * dy + dz * dz + col_mask[None, :]
     cols = torch.arange(xyz.shape[0], device=xyz.device)
     d2 = torch.where(cols[None, :] == row_idx[:, None], F32_MAX, d2)
     small = torch.topk(d2, k, dim=-1, largest=False).values
@@ -68,13 +72,12 @@ def _mean_knn_dist_bruteforce(xyz: torch.Tensor, count: torch.Tensor, k: int, bl
     self), by blocks of ``block`` rows against the whole buffer."""
     cap = xyz.shape[0]
     valid = torch.arange(cap, dtype=torch.int32, device=xyz.device) < count
-    sq = (xyz * xyz).sum(-1)
     col_mask = torch.where(valid, 0.0, F32_MAX)
     out = []
     for start in range(0, cap, block):
         rows = xyz[start:start + block]
         idx = torch.arange(start, start + rows.shape[0], device=xyz.device)
-        out.append(_knn_sum_rows(rows, sq[start:start + block], idx, xyz, sq, col_mask, k) / float(k))
+        out.append(_knn_sum_rows(rows, idx, xyz, col_mask, k) / float(k))
     return torch.where(valid, torch.cat(out), 0.0)
 
 

@@ -99,9 +99,9 @@ def scan_program(x: torch.Tensor, form: str, t: int = T) -> torch.Tensor:
     s, c = x.shape
     cnt = torch.empty((max(t, 1), c), dtype=torch.int32, device=x.device)
     out = torch.empty((8, c), dtype=torch.float32, device=x.device)
-    P = _kernels.ptr
-    with torch.cuda.device(x.device):
-        err = lib.cwipc_scan_probe(P(x), FORMS.index(form), s, c, t, P(cnt), P(out), _kernels.stream(x))
+    with _kernels.device_guard(x):
+        err = lib.cwipc_scan_probe(x.data_ptr(), FORMS.index(form), s, c, t, cnt.data_ptr(), out.data_ptr(),
+                                   _kernels.stream(x))
     _kernels.check(lib, err, what)
     scan_program.launches += 1
     return out

@@ -93,11 +93,10 @@ def segment_reduce_sorted(smk, sfr, srgba, out_capacity: int):
     rows = torch.empty((NROWS, ocap), dtype=torch.float32, device=dev)
     key = torch.empty(ocap, dtype=torch.int32, device=dev)
     nseg = torch.empty((), dtype=torch.int32, device=dev)
-    P = _kernels.ptr
-    with torch.cuda.device(dev):
+    with _kernels.device_guard(smk):
         err = lib.cwipc_segment_reduce(
-            P(smk), P(sfr), P(srgba), n, ocap, P(acc), P(tile_counts), P(tile_offsets),
-            P(rows), P(key), P(nseg), _kernels.stream(smk),
+            smk.data_ptr(), sfr.data_ptr(), srgba.data_ptr(), n, ocap, acc.data_ptr(), tile_counts.data_ptr(),
+            tile_offsets.data_ptr(), rows.data_ptr(), key.data_ptr(), nseg.data_ptr(), _kernels.stream(smk),
         )
     _kernels.check(lib, err, what)
     segment_reduce_sorted.launches += 1

@@ -116,7 +116,7 @@ def _sort_cuda(key: torch.Tensor, payloads) -> tuple[tuple[torch.Tensor, ...], t
     pin = [t.data_ptr() for t in payloads] + unused
     pout = [o0 + row * (1 + i) for i in range(len(payloads))] + unused
     ping = [w0 + 4 * head + row * i for i in range(4)]
-    with torch.cuda.device(dev):
+    with _kernels.device_guard(key):
         err = lib.cwipc_sort_pairs(key.data_ptr(), n, len(payloads), *pin, o0, *pout, *ping, w0,
                                    plan.scratch_bytes, _kernels.stream(key))
     _kernels.check(lib, err, "sort_by_key")

@@ -45,10 +45,10 @@ def window_knn_mean_distance_cm(x, y, z, count, k: int, window: int = 32):
         return window_knn_mean_distance_plain(x, y, z, count, k, window)
     lib = _kernels.load()
     md = torch.empty(n, dtype=torch.float32, device=x.device)
-    P = _kernels.ptr
-    with torch.cuda.device(x.device):
+    with _kernels.device_guard(x):
         err = lib.cwipc_window_knn(
-            P(x), P(y), P(z), P(count), n, window, min(k, 2 * window), P(md), _kernels.stream(x)
+            x.data_ptr(), y.data_ptr(), z.data_ptr(), count.data_ptr(), n, window, min(k, 2 * window), md.data_ptr(),
+            _kernels.stream(x),
         )
     _kernels.check(lib, err, what)
     window_knn_mean_distance_cm.launches += 1

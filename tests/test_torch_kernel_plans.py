@@ -14,6 +14,16 @@ CUDA kernels cannot (they run on the card, in chip_smoke.py phases 8-12).
   48 KB a block gets without the opt-in attribute at every cap_r from 1 to
   MAX_CAP (every cap ``nn_grid_params`` can choose among them) and every
   cap_q, and its passes can stage the whole ring union.
+* Kernel 4 (csrc/cols_select.cu): ``select_plan``'s shared memory fits
+  the 48 KB a block gets without the opt-in attribute at every cap from 1
+  to 7,812 (the largest ``_cols_grid_params`` can choose within its 8M
+  slots on a 32 x 32 plane), and its passes can stage the whole ring union;
+  a numpy emulation of the strip's index arithmetic gives each query
+  column exactly its 77 ring columns; and the seed-made walls with 200
+  copies of one point that chip_smoke.py phase 6 runs get grids of cap
+  over 160, which the column-per-block design could not take.
+* Kernel 3 (csrc/compact.cu): ``compact_plan``'s one buffer (outputs, kept
+  count, tile counter, 8-byte aligned status words) at n = 0 to 2^20.
 * The constants the plans mirror are the CUDA sources' own.
 """
 
@@ -24,8 +34,17 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+import cwipc_util_tpu_torch as port
 from cwipc_util_tpu_torch.core.errors import CwipcError
-from cwipc_util_tpu_torch.ops import nn_select, sort_kernel
+from cwipc_util_tpu_torch.ops import (
+    _cols_grid_params,
+    _estimate_spacing,
+    cols_select,
+    compact_kernel,
+    nn_select,
+    sort_kernel,
+)
 from cwipc_util_tpu_torch.ops.knn import nn_grid_params
 from cwipc_util_tpu_torch.ops.sort_kernel import digit_histogram, passes_run, sort_plan
 from cwipc_util_tpu_torch.ops.voxelize import morton3
@@ -46,6 +65,10 @@ def test_plans_mirror_the_sources():
     assert nn_select.THREADS == _constant("nn_select.cu", "THREADS")
     assert nn_select.STAGE_MAX == _constant("nn_select.cu", "STAGE_MAX")
     assert nn_select.MAX_CAP == _constant("nn_select.cu", "MAX_CAP_Q")
+    assert cols_select.STRIP == _constant("cols_select.cu", "STRIP")
+    assert cols_select.THREADS == _constant("cols_select.cu", "THREADS")
+    assert cols_select.STAGE_MAX == _constant("cols_select.cu", "STAGE_MAX")
+    assert compact_kernel.TILE == _constant("scan.cuh", "TILE")
 
 
 def _keys(kind: str, n: int) -> torch.Tensor:
@@ -134,3 +157,71 @@ def test_strip_plan_fits_shared_memory():
         assert nn_select.strip_plan(cap_r, cap_q).smem_bytes <= nn_select.SMEM_LIMIT
     with pytest.raises(CwipcError):
         nn_select.strip_plan(8, nn_select.MAX_CAP + 1)
+
+
+MAX_GRID_CAP = 8_000_000 // (32 * 32)  # _cols_grid_params: 8M slots over the smallest plane, 32 x 32
+
+
+def test_select_plan_fits_shared_memory():
+    for cap in range(1, MAX_GRID_CAP + 1):
+        plan = cols_select.select_plan(cap)
+        assert plan.smem_bytes <= cols_select.SMEM_LIMIT, (cap, plan)
+        assert 1 <= plan.stage <= cols_select.STAGE_MAX
+        assert plan.stage * plan.max_passes >= cols_select.UNION_COLS * cap
+        assert plan.threads == cols_select.THREADS
+    assert cols_select.select_plan(28).max_passes == 2  # the bench grid's cap: a full union takes two
+    with pytest.raises(CwipcError):
+        cols_select.select_plan(0)
+
+
+@pytest.mark.parametrize("gy, gz, row0, nrows", [(24, 24, 0, 576), (7, 13, 5, 80), (32, 152, 100, 4000)])
+def test_strip_union_holds_each_ring(gy, gz, row0, nrows):
+    """cols_select.cu's index arithmetic, emulated: block b's union column u
+    = (dyi, zc) reads bounds index j = q0 + dyi * gz + zc (plane row
+    row0 + j); query column i of the strip takes the union columns
+    dyi * UNION_W + i + corner ... + SIDE - corner.  Each query row must get
+    exactly the plane rows of its 77-column ring, every index in range."""
+    m, side, strip = 4, 9, cols_select.STRIP
+    uw = strip + 2 * m
+    off = m * gz + m
+    nb = nrows + 2 * off
+    ring = set(nn_select.ring_offsets(gz))
+    assert len(ring) == 77
+    for q0 in range(0, nrows, strip):
+        j = q0 + np.arange(side)[:, None] * gz + np.arange(uw)[None, :]  # [dyi, zc]
+        assert j.min() >= 0
+        for i in range(min(strip, nrows - q0)):
+            got = []
+            for dyi in range(side):
+                corner = 1 if dyi in (0, side - 1) else 0
+                cols = j[dyi, i + corner:i + side - corner]
+                assert cols.max() < nb  # a ring column is always within the bounds
+                got += list(row0 + cols)
+            assert len(got) == 77
+            query_row = row0 + q0 + i + off
+            assert {r - query_row for r in got} == ring
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 1025, 1 << 20])
+def test_compact_plan(n):
+    plan = compact_kernel.compact_plan(n)
+    assert plan.tiles == -(-n // compact_kernel.TILE)
+    assert plan.status_at % 2 == 0 and plan.status_at >= 4 * n + 2  # outputs, kept count, tile counter
+    assert plan.words == plan.status_at + 2 * plan.tiles  # a 64-bit status word per tile
+
+
+@pytest.mark.parametrize("sampling", ["camera", "uniform"])
+def test_wall_with_copies_needs_a_cap_over_160(sampling):
+    """The fault the strip design closes: stacked copies of one point make
+    ``cwipc_remove_outliers`` choose a column grid of cap over 160, which
+    the column-per-block kernel refused (its MAX_CAP)."""
+    mat = chip_smoke.wall_with_copies(sampling)
+    assert mat.shape == (chip_smoke.WALL_N + chip_smoke.WALL_COPIES, 7)
+    pc = port.cwipc_from_numpy_matrix(mat, 0, device="cpu")
+    k = chip_smoke.K
+    cell = max(1.0, float(np.sqrt(k / np.pi)) / 3.0) * _estimate_spacing(pc)  # as _remove_outliers_single
+    params = _cols_grid_params(mat[:, :3].astype(np.float64), cell)
+    assert params is not None
+    _perm, gy, gz, cap, _origin = params
+    assert cap > 160 and gy * gz * cap <= 8_000_000
+    assert cols_select.select_plan(cap).smem_bytes <= cols_select.SMEM_LIMIT
