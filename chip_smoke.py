@@ -10,10 +10,14 @@ phases that each stop the run at the first failure:
 1. start: CUDA present, kernels built, the card's name and power limit;
 2. each kernel against its plain PyTorch version on the card, at the
    chains' shapes (kernels 1 and 3 at both chains' capacities, kernel 3
-   with the exact chain's keep masks) and at edge cases (kernels 1 and 3
-   bit-equal, kernel 2
-   allclose with rtol 1e-5, atol 1e-7: only the order of its final sum
-   differs; kernel 4 on every occupied slot: the covered/uncovered
+   with the exact chain's keep masks, kernel 2 at the chain's window and
+   at the window method's default of 32) and at edge cases (kernels 1 and
+   3 bit-equal, kernel 1 with runs that end at a tile edge, start at a
+   tile's last point, walk 32 points or 32 and a tile past a tile's end,
+   and one run over all 1,048,576 slots, timed; kernel 2 allclose with
+   rtol 1e-5, atol 1e-7, for six (k, window) pairs that take both its
+   selection regimes, on a cloud with duplicate points: only the order of
+   its final sum differs; kernel 4 on every occupied slot: the covered/uncovered
    classification equal, kth bit-equal where covered, sums allclose with
    rtol 1e-5, atol 1e-5, and a row range equal to the rows of the whole
    run bit for bit; among its cases dense columns whose strip unions it
@@ -24,6 +28,7 @@ phases that each stop the run at the first failure:
    the chain run through the plain versions, and every kernel launched;
 4. times with CUDA events: the chain, its stages, kernels 1-3 next to
    their plain versions, and kernel 3 next to ``rows[keep]``, in turns;
+   kernel 2 also at window 32;
 5. the exact chain ``downsample_outliers_tilefilter_exact`` on the same
    cloud (bench.py's exact settings): 217,570 voxels, kept points equal to
    a float64 cKDTree oracle computed here (184,397 +/- 1 at tile 0,
@@ -89,6 +94,9 @@ phases that each stop the run at the first failure:
    time a call; kernel 3's host time a call by part (checks, allocation,
    device guard, pointers, the ctypes call) beside the earlier wrapper's
    parts, and its device time by kernel next to ``packed[keep]``'s;
+   kernels 1 and 2's host time a call by part (kernel 1's one allocation
+   beside its earlier six, kernel 2's checks beside its earlier ones) and
+   their device time by kernel (kernel 2 at windows 16 and 32);
    kernel 7 per form in element-steps/s, kernel 4's scan yardstick, the
    exact-key downsamples, the grid method and the filter frame.
 
@@ -898,6 +906,94 @@ def compact_host_phase(c):
         device_and_host(c, f"{name} at n={n}", fn, "call")
 
 
+def reduce_host_phase(c):
+    """Kernels 1 and 2 split: each wrapper's host microseconds a call by
+    part (its checks, its allocation, the device guard, the pointers and
+    stream, the ctypes call with its memset and launch, kernel 1's output
+    views) with kernel 1's earlier six allocations beside its one and
+    kernel 2's earlier checks beside its own; and the
+    device time by kernel and host time a call of kernel 1 at the fast
+    chain's sorted stream and of kernel 2 at the chain's window and at the
+    window method's default."""
+    import torch
+
+    from cwipc_util_tpu_torch import _kernels
+    from cwipc_util_tpu_torch.ops.segment_reduce import NROWS, TILE, segment_plan, segment_reduce_sorted
+    from cwipc_util_tpu_torch.ops.window_knn import MAX_WINDOW, window_knn_mean_distance_cm
+
+    smk, sfr, srgba = c.sorted
+    x, y, z, _rgba, cnt = c.down
+    n, dev = smk.shape[0], smk.device
+    m = x.shape[0]
+    lib = _kernels.load()
+    ntiles = -(-n // TILE)
+    plan = segment_plan(n, OCAP)
+    work = torch.empty(plan.words, dtype=torch.int32, device=dev)
+    md = torch.empty(m, dtype=torch.float32, device=dev)
+
+    def checks():
+        return _kernels.expect_rows("reduce", ("smk", "sfr", "srgba"), (smk, sfr, srgba), torch.int32, n)
+
+    def checks2():
+        kind = _kernels.expect_rows("knn", ("x", "y", "z"), (x, y, z), torch.float32, m)
+        if cnt.dtype is not torch.int32 or cnt.dim() != 0 or cnt.device != x.device:
+            raise RuntimeError("count")
+        if not 1 <= WINDOW <= MAX_WINDOW or K < 1:
+            raise RuntimeError("window")
+        return kind
+
+    def checks2_before():  # expect() on each argument, then route()
+        for name, t_ in (("x", x), ("y", y), ("z", z)):
+            _kernels.expect("knn", name, t_, torch.float32, (m,))
+        _kernels.expect("knn", "count", cnt, torch.int32, ())
+        if not 1 <= WINDOW <= MAX_WINDOW or K < 1:
+            raise RuntimeError("window")
+        _kernels.route("knn", x, y, z, cnt)
+
+    def guard():
+        with _kernels.device_guard(smk):
+            pass
+
+    def views():
+        rows = work[:plan.key_at].view(torch.float32).view(NROWS, OCAP)
+        return rows, work[plan.key_at:plan.nseg_at], work[plan.nseg_at]
+
+    args = [smk.data_ptr(), sfr.data_ptr(), srgba.data_ptr(), n, OCAP, work.data_ptr(), _kernels.stream(smk)]
+    args2 = [x.data_ptr(), y.data_ptr(), z.data_ptr(), cnt.data_ptr(), m, WINDOW, min(K, 2 * WINDOW),
+             md.data_ptr(), _kernels.stream(x)]
+    parts = {
+        "checks": checks,
+        "allocation (one buffer)": lambda: torch.empty(segment_plan(n, OCAP).words, dtype=torch.int32, device=dev),
+        "allocations before (six)": lambda: (
+            torch.empty((NROWS, OCAP), dtype=torch.int32, device=dev),
+            torch.empty(ntiles, dtype=torch.int32, device=dev), torch.empty(ntiles, dtype=torch.int32, device=dev),
+            torch.empty((NROWS, OCAP), dtype=torch.float32, device=dev),
+            torch.empty(OCAP, dtype=torch.int32, device=dev), torch.empty((), dtype=torch.int32, device=dev)),
+        "device guard": guard,
+        "pointers and stream": lambda: [t_.data_ptr() for t_ in (smk, sfr, srgba, work)] + [_kernels.stream(smk)],
+        "ctypes call (memset and launch)": lambda: lib.cwipc_segment_reduce(*args),
+        "output views": views,
+        "the whole wrapper": lambda: segment_reduce_sorted(smk, sfr, srgba, OCAP),
+    }
+    split = {name: host_us(fn) for name, fn in parts.items()}
+    print(f"{c.card} kernel 1 at n={n}, ocap {OCAP}, host us a call by part: {split}")
+    parts2 = {
+        "checks": checks2,
+        "checks before (expect and route)": checks2_before,
+        "allocation": lambda: torch.empty(m, dtype=torch.float32, device=dev),
+        "device guard": guard,
+        "pointers and stream": lambda: [t_.data_ptr() for t_ in (x, y, z, cnt, md)] + [_kernels.stream(x)],
+        "ctypes call (launch)": lambda: lib.cwipc_window_knn(*args2),
+        "the whole wrapper": lambda: window_knn_mean_distance_cm(x, y, z, cnt, K, WINDOW),
+    }
+    split2 = {name: host_us(fn) for name, fn in parts2.items()}
+    print(f"{c.card} kernel 2 at n={m}, k {K}, window {WINDOW}, host us a call by part: {split2}")
+    device_and_host(c, f"kernel 1 at n={n}, ocap {OCAP}", parts["the whole wrapper"], "call")
+    for k, w in ((K, WINDOW), (K, 32)):
+        device_and_host(c, f"kernel 2 at n={m}, k {k}, window {w}",
+                        lambda: window_knn_mean_distance_cm(x, y, z, cnt, k, w), "call")
+
+
 def times_phase(c, s12, s13, s14, k4):
     """Phase 15: times with CUDA events; returns kernels 6 and 7's records."""
     import torch
@@ -936,6 +1032,7 @@ def times_phase(c, s12, s13, s14, k4):
         "library_ms": lms,
     })
     compact_host_phase(c)
+    reduce_host_phase(c)
     clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                            capture_output=True, text=True, check=True).stdout.split()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1080,6 +1177,14 @@ def main() -> int:
             rgba = ((rgba.view(np.uint32) & 0x00FFFFFF) | (np.uint32(tiles) << 24)).view(np.int32)
         return t(k), t(fr), t(rgba)
 
+    def runs_of(lengths, cap):
+        """Sorted keys with runs of the given lengths, then sentinels to cap."""
+        keys = np.sort(gen.choice(1 << 29, len(lengths), replace=False)).astype(np.int32)
+        k = np.full(cap, SENTINEL, np.int32)
+        k[: sum(lengths)] = np.repeat(keys, lengths)
+        return (t(k), t(gen.integers(0, 1 << 30, cap).astype(np.int32)),
+                t(gen.integers(-(2**31), 2**31, cap).astype(np.int32)))
+
     (rows, key, nseg), (prows, _, _) = reduce_case(smk, sfr, srgba, OCAP)
     k1_err = float((rows - prows).abs().max())
     reduce_case(*runs(3000, 5, 4096), 2048)                 # runs longer than a 1024-point tile
@@ -1090,8 +1195,17 @@ def main() -> int:
     (_, _, n_over), _ = reduce_case(*runs(4000, 700, 4096), 256)  # runs past out_capacity dropped
     check(int(n_over) > 256, "kernel 1: nseg must count the runs past out_capacity")
     reduce_case(smk, sfr, srgba, EX_OCAP)                   # the exact chain's capacity
+    reduce_case(*runs_of([1024, 1024, 2048, 512, 512, 3072], 8192), 4096)  # runs ending at tile edges
+    reduce_case(*runs_of([1023, 5, 2043, 1, 3000], 8192), 4096)  # runs starting at a tile's last point
+    # walks past a tile's end of exactly 32 points (one warp) and of 32 + a tile
+    reduce_case(*runs_of([1024 + 32, 2048 - 32 - 1, 1 + 32 + 1024, 3], 6144), 4096)
+    all_n = runs_of([CAPACITY], CAPACITY)                   # one run over all 1,048,576 slots
+    (all_rows, _, all_nseg), _ = reduce_case(*all_n, 256)
+    check(int(all_nseg) == 1 and int(all_rows[6, 0]) == CAPACITY, "kernel 1: one run over all n")
+    all_ms = time_ms(lambda: segment_reduce_sorted(*all_n, 256), reps=5, warm=1)
     print(f"{card} phase 2: kernel 1 bit-equal to its plain version at n={smk.shape[0]}"
-          f" (capacities {OCAP} and {EX_OCAP}) and 6 edge cases")
+          f" (capacities {OCAP} and {EX_OCAP}) and 10 edge cases; one run over all {CAPACITY} slots"
+          f" (walked by one block): {all_ms} ms")
 
     x, y, z, rgba, cnt = voxelize._reduce_runs_cm(rows, key, nseg, vmin_safe, CELL, OCAP)
 
@@ -1107,6 +1221,8 @@ def main() -> int:
 
     md, pmd = knn_case(x, y, z, cnt, K, WINDOW)
     k2_err = float((md - pmd).abs().max())
+    md32, pmd32 = knn_case(x, y, z, cnt, K, 32)  # the window method's default on the chain's voxels
+    k2_err32 = float((md32 - pmd32).abs().max())
     cloud = np.sort(gen.random((4096, 3), dtype=np.float32), axis=0)
     cx, cy, cz = (t(cloud[:, a]) for a in range(3))
 
@@ -1118,7 +1234,16 @@ def main() -> int:
     knn_case(cx, cy, cz, i32(0), 30, 16)
     knn_case(cx[:3001], cy[:3001], cz[:3001], i32(2999), 5, 8)  # k far below 2W; ragged n
     knn_case(cx, cy, cz, i32(4096), 30, 1)                      # kk = 2
-    print(f"{card} phase 2: kernel 2 allclose to its plain version at n={OCAP} and 5 edge cases")
+    dup = cloud.copy()
+    dup[1::7] = dup[0::7][: len(dup[1::7])]  # duplicate points: ties at d2 = 0
+    dup[2::7] = dup[0::7][: len(dup[2::7])]
+    dx_, dy_, dz_ = (t(dup[:, a]) for a in range(3))
+    pairs_kw = ((30, 16), (30, 32), (5, 8), (1, 1), (64, 32), (31, 16))  # both selection regimes
+    k2_pair_err = max(maxabs(*knn_case(dx_, dy_, dz_, i32(cnt_), k_, w_))
+                      for k_, w_ in pairs_kw for cnt_ in (4096, 100))
+    print(f"{card} phase 2: kernel 2 allclose to its plain version at n={OCAP} (k {K}: window {WINDOW}, max abs"
+          f" err {k2_err}; window 32, max abs err {k2_err32}), 5 edge cases and (k, window) {pairs_kw} on a"
+          f" cloud with duplicate points (max abs err {k2_pair_err})")
 
     keep = chain.keep_mask(md, rgba, cnt, MULT, TILE)
 
@@ -1331,6 +1456,13 @@ def main() -> int:
             "max_abs_err": err, "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
             "library_ms": lms,
         })
+    # kernel 2 at the window method's default (k 30, window 32): off the
+    # chain, so not in the kernels line
+    kms, pms, _, runs32 = in_turns(lambda: window_knn_mean_distance_cm(x, y, z, cnt, K, 32),
+                                   lambda: window_knn_mean_distance_plain(x, y, z, cnt, K, 32))
+    bms32, bby32 = bound(12 * n_valid + tensor_bytes(cnt, md), n_valid * (2 * 32 * 8 + 2 * K))
+    print(f"{card} kernel window_knn at k {K}, window 32: {kms} ms; plain PyTorch {pms} ms; bound {bms32} ms"
+          f" ({bby32}); in turns (plain, kernel, kernel, plain) {runs32}")
     print(f"{card} phase 4 ok {lap()}")
 
     # ---- phase 5: the exact chain, once, through the public function ------
@@ -1968,7 +2100,8 @@ def main() -> int:
     # ---- phases 12-15: kernels 6 and 7, the ops and filter path, times -------
     from types import SimpleNamespace
 
-    ctx = SimpleNamespace(dev=dev, card=card, lap=lap, t=t, buf=buf, pts=pts, down=(x, y, z, rgba, cnt), keep=keep)
+    ctx = SimpleNamespace(dev=dev, card=card, lap=lap, t=t, buf=buf, pts=pts, sorted=(smk, sfr, srgba),
+                          down=(x, y, z, rgba, cnt), keep=keep)
     s12 = sort_phase(ctx)
     s13 = scan_phase(ctx)
     s14 = ops_phase(ctx)

@@ -54,8 +54,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (all return int, a cudaError_t)
 _SIGNATURES = {
-    # key, fr, rgba, n, ocap, acc, tile_counts, tile_offsets, rows, out_key, nseg, stream
-    "cwipc_segment_reduce": (_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # key, fr, rgba, n, ocap, work, stream
+    "cwipc_segment_reduce": (_P, _P, _P, _I, _I, _P, _P),
     # x, y, z, count, n, window, kk, md, stream
     "cwipc_window_knn": (_P, _P, _P, _P, _I, _I, _I, _P, _P),
     # x, y, z, rgba, keep, count, n, work, stream
@@ -191,6 +191,21 @@ def route(what: str, *tensors: torch.Tensor) -> str:
     if dev.type not in ("cpu", "cuda"):
         raise CwipcError(f"{what}: no kernel for device {dev}")
     return dev.type
+
+
+def expect_rows(what: str, names: tuple, tensors: tuple, dtype: torch.dtype, n: int) -> str:
+    """:func:`expect` and :func:`route` for tensors that must all be
+    contiguous [n] of one dtype on one device, in one pass where they hold
+    (they run on every call's path); where one does not, those two raise.
+    Returns 'cpu' or 'cuda'."""
+    shape = (n,)
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype is not dtype or t.shape != shape or t.device != dev or not t.is_contiguous():
+            for name, u in zip(names, tensors):
+                expect(what, name, u, dtype, shape)
+            return route(what, *tensors)
+    return dev.type if dev.type in ("cpu", "cuda") else route(what, *tensors)
 
 
 def expect(what: str, name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:

@@ -15,26 +15,15 @@
 //      slots no kept point reaches read zero), the kept count, a tile
 //      counter and one 64-bit look-back status word per tile;
 //   2. a block of TILE threads takes the next tile of TILE points from the
-//      tile counter (so every tile it waits on belongs to a block that is
-//      already running), counts and ranks its kept points with one block
-//      scan, publishes its count, and resolves its offset by decoupled
-//      look-back: warp 0 reads the status words of the 32 tiles before it
-//      at once and stops at the nearest that holds an inclusive prefix.  It
-//      publishes its own inclusive prefix, the last tile writes the kept
-//      count, and each kept point writes its four words to its rank.
-// A status word holds a flag (the tile's own count, or the count of it and
-// every earlier tile) and the count, in one 64-bit word, so a reader that
-// sees the flag sees the count.
+//      tile counter, counts and ranks its kept points with one block scan,
+//      and resolves its offset by decoupled look-back (scan.cuh); the last
+//      tile writes the kept count, and each kept point writes its four
+//      words to its rank.
 #include <cuda_runtime.h>
 
-#include "scan.cuh"  // TILE, block_exclusive_scan, CWIPC_RETURN_IF_ERROR
+#include "scan.cuh"  // TILE, block_exclusive_scan, lookback_exclusive, CWIPC_RETURN_IF_ERROR
 
 namespace {
-
-constexpr unsigned long long FLAG_AGG = 1ull << 62;     // the tile's own count
-constexpr unsigned long long FLAG_PREFIX = 1ull << 63;  // the count of this and every earlier tile
-constexpr unsigned long long VALUE_MASK = 0xffffffffull;
-constexpr unsigned FULL = 0xffffffffu;
 
 __global__ void __launch_bounds__(TILE)
 compact_lookback(const int* __restrict__ x, const int* __restrict__ y, const int* __restrict__ z,
@@ -49,34 +38,11 @@ compact_lookback(const int* __restrict__ x, const int* __restrict__ y, const int
   const int i = tile * TILE + threadIdx.x;
   const int kept = i < n && i < *count_ptr && keep[i] != 0;
   int total;
-  const int before = block_exclusive_scan(kept, &total);
+  const int before = block_exclusive_scan<TILE>(kept, &total);
 
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    volatile unsigned long long* st = status;
-    if (lane == 0) st[tile] = (tile == 0 ? FLAG_PREFIX : FLAG_AGG) | static_cast<unsigned long long>(total);
-    int prefix = 0;
-    if (tile > 0) {
-      // lane l reads tile hi - l: the nearest first
-      for (int hi = tile - 1;; hi -= 32) {
-        const int t = hi - lane;
-        unsigned long long w = FLAG_PREFIX;  // below tile 0: a prefix of 0
-        if (t >= 0) {
-          do {
-            w = st[t];
-          } while ((w & (FLAG_AGG | FLAG_PREFIX)) == 0);
-        }
-        const unsigned has_prefix = __ballot_sync(FULL, (w & FLAG_PREFIX) != 0);
-        const int stop = has_prefix != 0 ? __ffs(has_prefix) - 1 : 31;
-        int v = lane <= stop ? static_cast<int>(w & VALUE_MASK) : 0;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-        prefix += v;
-        if (has_prefix != 0) break;
-      }
-      if (lane == 0) st[tile] = FLAG_PREFIX | static_cast<unsigned long long>(prefix + total);
-    }
-    if (lane == 0) {
+    const int prefix = lookback_exclusive(status, tile, total);
+    if (threadIdx.x == 0) {
       exclusive = prefix;
       if (tile == gridDim.x - 1) *nkept = prefix + total;
     }

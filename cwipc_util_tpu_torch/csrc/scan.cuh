@@ -1,13 +1,16 @@
-// Exclusive scans of 0/1 flags, shared by the segmented reduce
+// Block scans and the decoupled look-back, shared by the segmented reduce
 // (segment_reduce.cu) and the compaction (compact.cu).
 //
-// A device-wide scan is three launches over tiles of TILE points, one
-// thread per point:
-//   1. each tile counts its flags (__syncthreads_count);
-//   2. one block scans the per-tile counts into per-tile offsets and writes
-//      the grand total to a device scalar (scan_tile_counts);
-//   3. each tile scans its flags again (block_exclusive_scan) and adds its
-//      offset, which gives every point its rank.
+// Both are one launch over tiles of TILE points.  A block takes the next
+// tile from a counter in device memory, so every tile it waits on belongs
+// to a block that is already running.  It counts its items (run starts,
+// kept points), ranks them with one block scan, publishes its count and
+// resolves its offset by decoupled look-back (lookback_exclusive): warp 0
+// reads the status words of the 32 tiles before it at once and stops at
+// the nearest that holds an inclusive prefix.  A status word holds a flag
+// (the tile's own count, or the count of it and every earlier tile) and
+// the count, in one 64-bit word, so a reader that sees the flag sees the
+// count.  The status words start at zero (the caller's memset).
 // Everything has internal linkage: each .cu file gets its own copy.
 #pragma once
 
@@ -15,12 +18,21 @@
 
 namespace {
 
-constexpr int TILE = 1024;  // points per tile = threads per block
+constexpr int TILE = 1024;  // points per tile
+// a look-back status word: a flag in bit 62 (the tile's own count) or 63
+// (the count of this and every earlier tile), the count in bits 0-31
+constexpr unsigned long long LOOKBACK_AGG = 1ull << 62;
+constexpr unsigned long long LOOKBACK_PREFIX = 1ull << 63;
+constexpr unsigned long long LOOKBACK_VALUE = 0xffffffffull;
 
-// Exclusive prefix sum of v over the TILE threads of the block; *total
-// receives the block's sum.  Every thread of the block must call it.
+// Exclusive prefix sum of v over the NT threads of the block (NT a
+// multiple of 32, at most 1024); *total receives the block's sum.  Every
+// thread of the block must call it.
+template <int NT>
 __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[TILE / 32];
+  static_assert(NT % 32 == 0 && NT <= 1024, "NT: whole warps, at most 32 of them");
+  constexpr int NW = NT / 32;
+  __shared__ int warp_sums[NW];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int x = v;
@@ -31,37 +43,60 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
   }
   if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
-  if (warp == 0) {  // TILE / 32 == 32 warp sums: one per lane
-    int s = warp_sums[lane];
+  if (warp == 0) {  // one warp sum per lane
+    int s = lane < NW ? warp_sums[lane] : 0;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
+    for (int d = 1; d < NW; d <<= 1) {
       const int y = __shfl_up_sync(0xffffffffu, s, d);
       if (lane >= d) s += y;
     }
-    warp_sums[lane] = s;
+    if (lane < NW) warp_sums[lane] = s;
   }
   __syncthreads();
   const int before = warp > 0 ? warp_sums[warp - 1] : 0;
-  *total = warp_sums[TILE / 32 - 1];
+  *total = warp_sums[NW - 1];
   __syncthreads();  // warp_sums is reused by the next call
   return before + x - v;
 }
 
-// One block of TILE threads: tile_offsets[t] = sum of tile_counts[< t],
-// *total = sum of all.  Loops for more than TILE tiles.
-__global__ void __launch_bounds__(TILE)
-scan_tile_counts(const int* __restrict__ tile_counts, int ntiles,
-                 int* __restrict__ tile_offsets, int* __restrict__ total) {
-  int carry = 0;
-  for (int base = 0; base < ntiles; base += TILE) {
-    const int t = base + threadIdx.x;
-    const int v = t < ntiles ? tile_counts[t] : 0;
-    int sum;
-    const int before = block_exclusive_scan(v, &sum);
-    if (t < ntiles) tile_offsets[t] = carry + before;
-    carry += sum;
+// Called by the 32 lanes of one warp: publish the tile's count, find the
+// count of every earlier tile, publish the inclusive prefix, and return
+// the exclusive one to every lane.
+__device__ __forceinline__ int lookback_exclusive(unsigned long long* status, int tile, int count) {
+  const int lane = threadIdx.x & 31;
+  volatile unsigned long long* st = status;
+  if (lane == 0) st[tile] = (tile == 0 ? LOOKBACK_PREFIX : LOOKBACK_AGG) | static_cast<unsigned long long>(count);
+  int prefix = 0;
+  if (tile > 0) {
+    // lane l reads tile hi - l: the nearest first
+    for (int hi = tile - 1;; hi -= 32) {
+      const int t = hi - lane;
+      unsigned long long w = LOOKBACK_PREFIX;  // below tile 0: a prefix of 0
+      if (t >= 0) {
+        do {
+          w = st[t];
+        } while ((w & (LOOKBACK_AGG | LOOKBACK_PREFIX)) == 0);
+      }
+      const unsigned has_prefix = __ballot_sync(0xffffffffu, (w & LOOKBACK_PREFIX) != 0);
+      const int stop = has_prefix != 0 ? __ffs(has_prefix) - 1 : 31;
+      int v = lane <= stop ? static_cast<int>(w & LOOKBACK_VALUE) : 0;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      prefix += v;
+      if (has_prefix != 0) break;
+    }
+    if (lane == 0) st[tile] = LOOKBACK_PREFIX | static_cast<unsigned long long>(prefix + count);
   }
-  if (threadIdx.x == 0) *total = carry;
+  return prefix;
+}
+
+// The inclusive prefix of `tile` once it is published: the count of it and
+// every earlier tile.
+__device__ __forceinline__ int wait_prefix(const unsigned long long* status, int tile) {
+  volatile const unsigned long long* st = status;
+  unsigned long long w;
+  while (((w = st[tile]) & LOOKBACK_PREFIX) == 0) __nanosleep(64);
+  return static_cast<int>(w & LOOKBACK_VALUE);
 }
 
 }  // namespace

@@ -6,10 +6,15 @@ tensors :func:`segment_reduce_sorted` launches ``csrc/segment_reduce.cu``;
 on CPU tensors it runs :func:`segment_reduce_sorted_plain`, the plain
 PyTorch version of the same function.
 
-Bound on the H100: memory and latency (12 MB in, under 10 MB out at the
-chain's 1M points, no arithmetic to speak of).  The design — a device-wide
-scan of run starts gives each point its run id, integer atomics add it into
-its run's column — is described in the CUDA source.
+Bound on the H100: memory (12 bytes a point in, 36 bytes a run out: about
+20 MB at the chain's 1M points; no arithmetic to speak of).  The outputs,
+the run count, a tile counter and the look-back status words share one
+work buffer (:func:`segment_plan`).  One call is a memset of the part
+after the outputs and one launch: each tile of TILE points ranks its run
+starts, resolves its run offset by decoupled look-back, sums the runs that
+start in it (the last one walked past the tile's end) in registers and
+shared memory, and writes each of them once; blocks after the last tile
+zero the columns past the run count.  The CUDA source describes it.
 
 Output contract (the JAX wrapper's rows 0-7 and key, in a layout of its
 own): ``rows`` f32 [8, out_capacity] = sums of fx, fy, fz (fx = (q + 0.5) /
@@ -23,13 +28,42 @@ with each other and with the TPU kernel.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from .. import _kernels
 
 SENTINEL = 2**31 - 1
 NROWS = 8
-TILE = 1024  # scan.cuh's points per block
+TILE = 1024  # scan.cuh's points per tile
+ZERO_COLS = 4096  # segment_reduce.cu's columns a tail block zeroes
+
+
+@dataclass(frozen=True)
+class SegmentPlan:
+    """The one work buffer segment_reduce.cu takes for n points and ocap
+    columns, in int32 words: rows f32 [8, ocap] at 0, the run keys [ocap]
+    at ``key_at``, the run count at ``nseg_at``, the tile counter after it,
+    then one 64-bit look-back status word per tile from ``status_at``."""
+
+    tiles: int  # tiles of TILE points
+    blocks: int  # the launch's blocks: the tiles, then the tail blocks that zero [nseg, ocap)
+    key_at: int
+    nseg_at: int
+    status_at: int  # even: 8-byte aligned
+    words: int
+
+
+@functools.lru_cache(maxsize=256)
+def segment_plan(n: int, ocap: int) -> SegmentPlan:
+    """segment_reduce.cu's work buffer for n points and ocap columns."""
+    tiles = -(-n // TILE)
+    nseg_at = NROWS * ocap + ocap
+    status_at = (nseg_at + 3) // 2 * 2  # after the run count and the tile counter
+    return SegmentPlan(tiles=tiles, blocks=tiles + -(-ocap // ZERO_COLS), key_at=NROWS * ocap,
+                       nseg_at=nseg_at, status_at=status_at, words=status_at + 2 * tiles)
 
 
 def segment_reduce_sorted_plain(smk, sfr, srgba, out_capacity: int):
@@ -80,27 +114,18 @@ def segment_reduce_sorted(smk, sfr, srgba, out_capacity: int):
     what = "segment_reduce_sorted"
     n = smk.shape[0]
     ocap = int(out_capacity)
-    for name, t in (("smk", smk), ("sfr", sfr), ("srgba", srgba)):
-        _kernels.expect(what, name, t, torch.int32, (n,))
-    if _kernels.route(what, smk, sfr, srgba) == "cpu":
+    if _kernels.expect_rows(what, ("smk", "sfr", "srgba"), (smk, sfr, srgba), torch.int32, n) == "cpu":
         return segment_reduce_sorted_plain(smk, sfr, srgba, ocap)
+    plan = segment_plan(n, ocap)
+    work = torch.empty(plan.words, dtype=torch.int32, device=smk.device)
     lib = _kernels.load()
-    dev = smk.device
-    ntiles = -(-n // TILE)
-    acc = torch.empty((NROWS, ocap), dtype=torch.int32, device=dev)
-    tile_counts = torch.empty(max(ntiles, 1), dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty_like(tile_counts)
-    rows = torch.empty((NROWS, ocap), dtype=torch.float32, device=dev)
-    key = torch.empty(ocap, dtype=torch.int32, device=dev)
-    nseg = torch.empty((), dtype=torch.int32, device=dev)
     with _kernels.device_guard(smk):
-        err = lib.cwipc_segment_reduce(
-            smk.data_ptr(), sfr.data_ptr(), srgba.data_ptr(), n, ocap, acc.data_ptr(), tile_counts.data_ptr(),
-            tile_offsets.data_ptr(), rows.data_ptr(), key.data_ptr(), nseg.data_ptr(), _kernels.stream(smk),
-        )
+        err = lib.cwipc_segment_reduce(smk.data_ptr(), sfr.data_ptr(), srgba.data_ptr(), n, ocap, work.data_ptr(),
+                                       _kernels.stream(smk))
     _kernels.check(lib, err, what)
     segment_reduce_sorted.launches += 1
-    return rows, key, nseg
+    rows = work[:plan.key_at].view(torch.float32).view(NROWS, ocap)
+    return rows, work[plan.key_at:plan.nseg_at], work[plan.nseg_at]
 
 
 segment_reduce_sorted.launches = 0

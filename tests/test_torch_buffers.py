@@ -18,6 +18,7 @@ from cwipc_util_tpu_torch.core import buffers as pbuffers
 from cwipc_util_tpu_torch.models import synthetic as psynthetic
 from cwipc_util_tpu_torch.ops.compact_kernel import compact_kernel_cm
 from cwipc_util_tpu_torch.ops.segment_reduce import segment_reduce_sorted
+from cwipc_util_tpu_torch.ops.window_knn import window_knn_mean_distance_cm
 
 PKG = pathlib.Path(port.__file__).parent
 
@@ -192,3 +193,29 @@ def test_wrappers_check_arguments():
     before = (segment_reduce_sorted.launches, compact_kernel_cm.launches)
     compact_kernel_cm(f, f, f, i32, i32 > 0, torch.tensor(3, dtype=torch.int32))
     assert (segment_reduce_sorted.launches, compact_kernel_cm.launches) == before
+
+
+def test_window_knn_wrapper_checks_arguments():
+    """Kernel 2's one-pass checks raise on what the per-argument checks
+    raised on: a wrong dtype, shape, contiguity, count, window or device."""
+    f = torch.zeros(64)
+    c = torch.tensor(60, dtype=torch.int32)
+    cases = [
+        ("dtype", (f.double(), f, f, c, 30, 16)),
+        ("shape", (f, f[:10], f, c, 30, 16)),
+        ("contiguous", (f, torch.zeros(128)[::2], f, c, 30, 16)),
+        ("count has dtype", (f, f, f, c.long(), 30, 16)),
+        ("count has shape", (f, f, f, c[None], 30, 16)),
+        ("window", (f, f, f, c, 30, 33)),
+        ("window", (f, f, f, c, 0, 16)),
+        ("several devices", (f, f, f, torch.zeros((), dtype=torch.int32, device="meta"), 30, 16)),
+        ("several devices", (f, f.to("meta"), f, c, 30, 16)),
+    ]
+    meta = f.to("meta")
+    cases.append(("no kernel", (meta, meta, meta, c.to("meta"), 30, 16)))
+    for match, args in cases:
+        with pytest.raises(port.CwipcError, match=match):
+            window_knn_mean_distance_cm(*args)
+    before = window_knn_mean_distance_cm.launches
+    assert window_knn_mean_distance_cm(f, f, f, c, 30, 16).shape == (64,)
+    assert window_knn_mean_distance_cm.launches == before

@@ -24,6 +24,19 @@ CUDA kernels cannot (they run on the card, in chip_smoke.py phases 8-12).
   over 160, which the column-per-block design could not take.
 * Kernel 3 (csrc/compact.cu): ``compact_plan``'s one buffer (outputs, kept
   count, tile counter, 8-byte aligned status words) at n = 0 to 2^20.
+* Kernel 1 (csrc/segment_reduce.cu): ``segment_plan``'s one buffer (rows,
+  run keys, run count, tile counter, 8-byte aligned status words, views
+  that do not overlap) at n = 0 to 2^20; and a numpy emulation of the
+  kernel's tile ownership (a tile skips its leading points that continue
+  the previous tile's run, owns the runs that start in it, and the owner
+  of its last run walks on past its end, 32 points and then a tile at a
+  time) equal bit for bit to the plain version, at TILE and at a tile of
+  8, on runs that end at a tile edge, start at a tile's last point, span
+  one, two and many tiles, and cover all of n.
+* Kernel 2 (csrc/window_knn.cu): a torch emulation of its two selection
+  regimes (drop max-passes; the merge-and-keep-lower network), loop for
+  loop as the kernel runs them, allclose to the plain version for six
+  (k, window) pairs, with duplicate points and count 0, 100 and n.
 * The constants the plans mirror are the CUDA sources' own.
 """
 
@@ -43,7 +56,9 @@ from cwipc_util_tpu_torch.ops import (
     cols_select,
     compact_kernel,
     nn_select,
+    segment_reduce,
     sort_kernel,
+    window_knn,
 )
 from cwipc_util_tpu_torch.ops.knn import nn_grid_params
 from cwipc_util_tpu_torch.ops.sort_kernel import digit_histogram, passes_run, sort_plan
@@ -69,6 +84,13 @@ def test_plans_mirror_the_sources():
     assert cols_select.THREADS == _constant("cols_select.cu", "THREADS")
     assert cols_select.STAGE_MAX == _constant("cols_select.cu", "STAGE_MAX")
     assert compact_kernel.TILE == _constant("scan.cuh", "TILE")
+    assert segment_reduce.TILE == _constant("scan.cuh", "TILE")
+    assert segment_reduce.NROWS == _constant("segment_reduce.cu", "NROWS")
+    assert segment_reduce.ZERO_COLS == _constant("segment_reduce.cu", "ZERO_COLS")
+    assert segment_reduce.SENTINEL == int(re.search(r"constexpr int SENTINEL = (0x[0-9a-f]+);",
+                                                    (CSRC / "segment_reduce.cu").read_text()).group(1), 16)
+    assert window_knn.MAX_WINDOW == _constant("window_knn.cu", "MAX_WINDOW")
+    assert window_knn.DROP_MAX == _constant("window_knn.cu", "DROP_MAX")
 
 
 def _keys(kind: str, n: int) -> torch.Tensor:
@@ -225,3 +247,207 @@ def test_wall_with_copies_needs_a_cap_over_160(sampling):
     _perm, gy, gz, cap, _origin = params
     assert cap > 160 and gy * gz * cap <= 8_000_000
     assert cols_select.select_plan(cap).smem_bytes <= cols_select.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024, 3 * 1024 + 5, 1 << 20])
+def test_segment_plan(n):
+    for ocap in (0, 1, 7, 4096, 229376):
+        plan = segment_reduce.segment_plan(n, ocap)
+        nr = segment_reduce.NROWS
+        assert plan.tiles == -(-n // segment_reduce.TILE)
+        assert plan.blocks == plan.tiles + -(-ocap // segment_reduce.ZERO_COLS)
+        # rows [0, 8 ocap), keys [8 ocap, 9 ocap), the run count, the tile counter, the status words
+        assert plan.key_at == nr * ocap and plan.nseg_at == plan.key_at + ocap
+        assert plan.status_at % 2 == 0 and plan.status_at >= plan.nseg_at + 2
+        assert plan.words == plan.status_at + 2 * plan.tiles
+        work = torch.arange(plan.words, dtype=torch.int32)
+        rows = work[:plan.key_at].view(torch.float32).view(nr, ocap)
+        key, nseg = work[plan.key_at:plan.nseg_at], work[plan.nseg_at]
+        spans = [(rows.storage_offset(), rows.numel()), (key.storage_offset(), key.numel()),
+                 (nseg.storage_offset(), 1), (plan.nseg_at + 1, 1), (plan.status_at, 2 * plan.tiles)]
+        for (a0, a1), (b0, _) in zip(spans, spans[1:]):
+            assert a0 + a1 <= b0  # in order, no overlap
+        assert spans[-1][0] + spans[-1][1] == plan.words
+
+
+WARP = 32  # the walk's first step: one warp
+
+
+def _emulate_segment_reduce(smk, sfr, srgba, ocap, tile):
+    """segment_reduce.cu's ownership rule in numpy: each tile counts its run
+    starts (the look-back gives the offsets), skips its leading points that
+    continue the previous tile's run, sums the runs that start in it, and
+    the owner of its last run walks on past its end while the key holds: a
+    warp's 32 points, then a tile's at a time.  Returns (rows, key, nseg)."""
+    sentinel = segment_reduce.SENTINEL
+    key = smk.astype(np.int64)
+    n = len(key)
+    q = sfr.view(np.uint32).astype(np.int64)
+    c = srgba.view(np.uint32).astype(np.int64)
+    vals = np.stack([(q >> 20) & 1023, (q >> 10) & 1023, q & 1023,
+                     (c >> 16) & 255, (c >> 8) & 255, c & 255, np.ones(n, np.int64)])
+    tile_bits = (c >> 24) & 255
+    valid = key != sentinel
+    start = valid & ((np.arange(n) == 0) | (key != np.concatenate([[sentinel], key[:-1]])))
+    tiles = -(-n // tile)
+    counts = np.array([int(start[t * tile:(t + 1) * tile].sum()) for t in range(tiles)], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)  # the look-back's prefixes
+    rows = np.zeros((8, ocap), np.float32)
+    out_key = np.zeros(ocap, np.int32)
+    for t in range(tiles):
+        lo, hi = t * tile, min((t + 1) * tile, n)
+        nr = int(counts[t])
+        run = np.cumsum(start[lo:hi]) - 1  # local run; -1: a leading continuation, skipped
+        own = valid[lo:hi] & (run >= 0)
+        sums = np.zeros((7, nr), np.int64)
+        ors = np.zeros(nr, np.int64)
+        for r in range(7):
+            np.add.at(sums[r], run[own], vals[r, lo:hi][own])
+        np.bitwise_or.at(ors, run[own], tile_bits[lo:hi][own])
+        if nr > 0 and hi < n and valid[hi - 1]:  # the walk
+            kl, j, step = key[hi - 1], hi, WARP
+            while True:
+                pos = np.arange(j, j + step)
+                cont = np.zeros(step, bool)
+                cont[pos < n] = key[pos[pos < n]] == kl
+                upto = step if cont.all() else int(np.argmin(cont))
+                sums[:, nr - 1] += vals[:, j:j + upto].sum(1)
+                ors[nr - 1] |= np.bitwise_or.reduce(tile_bits[j:j + upto], initial=0)
+                if upto < step:
+                    break
+                j, step = j + step, tile
+        cols = offsets[t] + np.arange(nr)
+        w = cols < ocap
+        rows[0:3, cols[w]] = (2 * sums[0:3, w] + sums[6, w]).astype(np.float32) * np.float32(1 / 2048)
+        rows[3:7, cols[w]] = sums[3:7, w].astype(np.float32)
+        rows[7, cols[w]] = ors[w].astype(np.float32)
+        out_key[cols[w]] = key[lo:hi][start[lo:hi]][w]
+    return rows, out_key, int(offsets[-1])
+
+
+def _runs_from_lengths(lengths, cap, seed, sentinel_gap=False):
+    """Sorted keys with runs of the given lengths, then sentinels to cap."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.choice(1 << 29, len(lengths), replace=False)).astype(np.int32)
+    smk = np.full(cap, segment_reduce.SENTINEL, np.int32)
+    body = np.repeat(keys, lengths)
+    smk[:len(body)] = body
+    sfr = rng.integers(0, 1 << 30, cap).astype(np.int32)
+    srgba = rng.integers(-(2**31), 2**31, cap).astype(np.int32)
+    return smk, sfr, srgba
+
+
+def _ownership_cases(t):
+    rng = np.random.default_rng(t)
+    s3 = -(-(t + WARP + 2) // t) * t + t - 1  # the last point of a tile after the first run
+    return {
+        "runs ending at tile edges": ([t, t, 2 * t, t // 2, t // 2, 3 * t], 9 * t),
+        "a run starting at a tile's last point": ([t - 1, 5, t - 5, t + 1, 2], 4 * t),
+        "runs of one, two and many tiles": ([1, 2 * t + 3, 5 * t, 1, 2, t], 10 * t + 16),
+        # the first run fills tile 0 and 32 points more; the third starts at a
+        # tile's last point and goes on for 32 points and a tile
+        "walks of exactly 32 and of 32 + a tile": ([t + WARP, s3 - t - WARP, 1 + WARP + t, 3], s3 + 2 * t + WARP + 8),
+        "one run over all n": ([8 * t], 8 * t),
+        "short random runs": (list(rng.integers(1, 9, 6 * t // 4)), 8 * t),
+    }
+
+
+@pytest.mark.parametrize("tile", [segment_reduce.TILE, 8])
+@pytest.mark.parametrize("case", list(_ownership_cases(8)))
+def test_segment_reduce_tile_ownership(tile, case):
+    lengths, cap = _ownership_cases(tile)[case]
+    assert sum(lengths) <= cap
+    smk, sfr, srgba = _runs_from_lengths(lengths, cap, seed=len(case))
+    for ocap in (cap, len(lengths) // 2):  # every run kept; runs past ocap dropped
+        rows, key, nseg = _emulate_segment_reduce(smk, sfr, srgba, ocap, tile)
+        prows, pkey, pnseg = segment_reduce.segment_reduce_sorted_plain(
+            *(torch.from_numpy(a) for a in (smk, sfr, srgba)), ocap)
+        assert nseg == int(pnseg) == len(lengths)
+        np.testing.assert_array_equal(rows.view(np.uint32), prows.numpy().view(np.uint32))
+        np.testing.assert_array_equal(key, pkey.numpy())
+
+
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _emulate_window_knn(x, y, z, count, k, window):
+    """window_knn.cu's selection, loop for loop, over all points at once:
+    the drop regime's tree max, mask and removal of the lowest index among
+    equals, or the merge-and-keep-lower network; sums in the kernel's
+    order."""
+    n = x.shape[0]
+    np_ = 16 if window <= 8 else 32 if window <= 16 else 64
+    kk = min(k, 2 * window)
+    idx = torch.arange(n)
+    drop_regime = 2 * window - kk <= window_knn.DROP_MAX
+    d = []
+    for w in [*range(-window, 0), *range(1, window + 1)]:
+        nb = (idx + w).clamp(0, n - 1)
+        dx, dy, dz = x - x[nb], y - y[nb], z - z[nb]
+        ok = (idx + w >= 0) & (idx + w < count)
+        d.append(torch.where(ok, (dx * dx + dy * dy) + dz * dz, F32_MAX))
+    d += [torch.full((n,), -1.0 if drop_regime else F32_MAX)] * (np_ - 2 * window)
+    s = torch.zeros(n)
+    if drop_regime:
+        for _ in range(2 * window - kk):
+            m = [torch.maximum(d[j], d[j + np_ // 2]) for j in range(np_ // 2)]
+            h = np_ // 4
+            while h > 0:
+                m = [torch.maximum(m[j], m[j + h]) for j in range(h)]
+                h //= 2
+            hit = torch.stack([d[j] == m[0] for j in range(np_)], 1)
+            first = hit.to(torch.int64).argmax(1)  # the lowest set bit
+            d = [torch.where(first == j, -1.0, d[j]) for j in range(np_)]
+        for j in range(np_):
+            use = (d[j] >= 0) & (d[j] < F32_MAX / 2)
+            s = torch.where(use, s + torch.sqrt(torch.where(use, d[j], 0.0)), s)
+    else:
+        p = 1
+        while p < kk:
+            p *= 2
+
+        def exchange(a, b, up):
+            lo, hi = torch.minimum(d[a], d[b]), torch.maximum(d[a], d[b])
+            d[a], d[b] = (lo, hi) if up else (hi, lo)
+
+        size = 2
+        while size <= p:
+            stride = size // 2
+            while stride > 0:
+                for a in range(np_):
+                    if a ^ stride > a:
+                        exchange(a, a ^ stride, (a & size) == 0)
+                stride //= 2
+            size *= 2
+        span = p
+        while span < np_:
+            for a in range(np_):
+                if a & (2 * span - 1) < p:
+                    d[a] = torch.minimum(d[a], d[a + span])
+            stride = p // 2
+            while stride > 0:
+                for a in range(np_):
+                    if a & (2 * span - 1) < p and a ^ stride > a:
+                        exchange(a, a ^ stride, (a & (2 * span)) == 0)
+                stride //= 2
+            span *= 2
+        for j in range(kk):
+            use = d[j] < F32_MAX / 2
+            s = torch.where(use, s + torch.sqrt(torch.where(use, d[j], 0.0)), s)
+    return torch.where(idx < count, s / float(kk), 0.0)
+
+
+@pytest.mark.parametrize("k, window", [(30, 16), (30, 32), (5, 8), (1, 1), (64, 32), (31, 16)])
+def test_window_knn_selection_regimes(k, window):
+    rng = np.random.default_rng(k + window)
+    n = 1000
+    pts = np.sort(rng.random((n, 3), dtype=np.float32), axis=0)
+    pts[1::7] = pts[0::7][: len(pts[1::7])]  # duplicate points: ties at d2 = 0
+    pts[2::7] = pts[0::7][: len(pts[2::7])]
+    x, y, z = (torch.from_numpy(np.ascontiguousarray(pts[:, a])) for a in range(3))
+    for count in (0, 100, n):
+        cnt = torch.tensor(count, dtype=torch.int32)
+        got = _emulate_window_knn(x, y, z, count, k, window)
+        want = window_knn.window_knn_mean_distance_plain(x, y, z, cnt, k, window)
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-7), (count, float((got - want).abs().max()))
+        assert not got[count:].any()
