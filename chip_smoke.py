@@ -98,7 +98,24 @@ phases that each stop the run at the first failure:
    beside its earlier six, kernel 2's checks beside its earlier ones) and
    their device time by kernel (kernel 2 at windows 16 and 32);
    kernel 7 per form in element-steps/s, kernel 4's scan yardstick, the
-   exact-key downsamples, the grid method and the filter frame.
+   exact-key downsamples, the grid method and the filter frame;
+16. the codec (``codec_phase``): the synthetic source's default 160,000-
+   point frame and the 1M-point body with half its tiles raised by 0x80,
+   each through a solo encoder at 9 bits (kernel 1), at 9 bits with tile
+   mask 1 (kernels 3 and 1), a group {9, 8, 7} (one shared pass) and a
+   solo encoder at 10 bits (the exact-key downsample): the launches of
+   kernels 1 and 3 and the host reads (CUDA's sync debug mode) of each
+   encode, one each; every kernel call of that run equal to its plain
+   version; the device program bit-equal to its run on a CPU copy, the
+   streams byte-equal to the CPU copy's, the group's deepest member to a
+   solo encode, the decoded stream equal to the host twin's outside the
+   cells of the points where floor(x / step) and floor(x * (1 / step))
+   disagree (everywhere where there are none); 10 frames through
+   cwipc_sink_encoder -> MemoryLink -> cwipc_source_decoder with the solo
+   decoder's counts; encode and decode ms a frame, the encode's parts and
+   the kernels' device time inside an encode.  It prints the color route
+   (JPEG needs cv2) and whether the native shim, built with make into
+   ``cwipc_util_tpu_torch/_build/native/``, loaded.
 
 Each phase line ends with the wall seconds the phase took.  The kernels
 line gives, per kernel, its time, its plain version's, its bound (the
@@ -110,7 +127,7 @@ and points the function must read) and, where one PyTorch call computes
 the same function, that call's time.  ``launches`` is the count of the
 main path's run; kernels 6 and 7 are on no path (as in the JAX package),
 and theirs is the count of phase 12's sort -> kernel 1 run and phase 13's
-probe run.
+probe run.  ``codec_launches`` is the count of phase 16's codec run.
 
 Run alone, outside a checkout, or without CUDA, it exits 2 and prints no
 result.
@@ -1091,6 +1108,366 @@ def times_phase(c, s12, s13, s14, k4):
           f" {statistics.median(sum(st) for st in frames)} s; stages (median s) {dict(zip(names, stage_s))}")
     print(f"{c.card} phase 15 ok {c.lap()}")
     return records
+
+
+# phase 16, the codec: the synthetic source's default frame and the bench
+# body with its tiles on the x > 0 half raised by 0x80; four encoder
+# configurations (label, octree_bits of the members, tile mask); warm
+# frames timed and frames sent through the sinks
+CODEC_N = 160000
+CODEC_CONFIGS = (("solo 9, tile 0", (9,), 0), ("solo 9, tile 1", (9,), 1),
+                 ("group 9/8/7, tile 0", (9, 8, 7), 0), ("solo 10, tile 0", (10,), 0))
+CODEC_REPS, CODEC_WARM = 20, 3
+ROUNDTRIP_FRAMES = 10
+
+
+class MemoryLink:
+    """A raw sink whose packets a raw source reads, in process: what the
+    encoder sink feeds (start, stop, set_fourcc, add_stream, feed) and
+    what the decoder source reads (get, available, eof)."""
+
+    def __init__(self):
+        import queue
+
+        self.packets = queue.Queue()
+        self.fourcc = None
+        self.closed = False
+
+    def start(self):
+        pass
+
+    def stop(self):
+        self.closed = True
+        self.packets.put(None)
+
+    def set_fourcc(self, fourcc):
+        self.fourcc = fourcc
+
+    def add_stream(self, tilenum=None, tiledesc=None, qualitydesc=None):
+        return 0
+
+    def feed(self, buffer, stream_index=None):
+        self.packets.put(bytes(buffer))
+        return True
+
+    def get(self):
+        return self.packets.get(timeout=30)
+
+    def available(self, wait=False):
+        return not self.packets.empty()
+
+    def eof(self):
+        return self.closed and self.packets.empty()
+
+
+def drain(src, n, timeout=60.0):
+    """Up to n clouds from an active source, stopping at its end or the deadline."""
+    got, deadline = [], time.monotonic() + timeout
+    while len(got) < n and time.monotonic() < deadline:
+        if src.available(False):
+            pc = src.get()
+            if pc is None:
+                break
+            got.append(pc)
+        elif src.eof():
+            break
+        else:
+            time.sleep(0.002)
+    return got
+
+
+def seam_cells(arr, step, tile):
+    """The cells (absolute, at the stream's step) of the points where the
+    host twin's floor(x / step) and the device program's floor(x * (1 /
+    step)) disagree: the two routes' one documented seam."""
+    import numpy as np
+
+    if tile:
+        arr = arr[(arr["tile"] & tile) != 0]
+    s = np.float32(step)
+    xyz = np.stack([arr[f] for f in "xyz"], -1)
+    a, b = np.floor(xyz / s).astype(np.int64), np.floor(xyz * (np.float32(1) / s)).astype(np.int64)
+    bad = (a != b).any(1)
+    return np.unique(np.concatenate([a[bad], b[bad]]), axis=0)
+
+
+def voxel_rows(arr, step, drop_cells):
+    """A decoded cloud as (cell x, y, z, r, g, b, tile) rows, absolute cells
+    at the stream's step (each position is a cell centre), without the rows
+    in ``drop_cells``."""
+    import numpy as np
+
+    cells = np.floor(np.stack([arr[f] for f in "xyz"], -1).astype(np.float64) / step).astype(np.int64)
+    rows = np.concatenate([cells] + [arr[f].astype(np.int64)[:, None] for f in ("r", "g", "b", "tile")], 1)
+
+    def key(c):
+        c = c + (1 << 20)
+        return (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]
+
+    return rows[~np.isin(key(cells), key(drop_cells))]
+
+
+def codec_phase(c):
+    """Phase 16: the compressed streaming path, in process, on the card.
+
+    Each frame goes through each encoder configuration once with the
+    launch counts at 0 (kernel 1 once at 9 bits and below, kernel 3 once
+    at a tile mask, neither at 10), counting the host reads of each encode
+    (CUDA's sync debug mode).  Then: the device program on the CUDA cloud
+    bit-equal to the same function on a CPU copy (the plain versions), the
+    streams byte-equal, every kernel call of the run equal to its plain
+    version, the group's deepest member byte-equal to a solo encode,
+    the decoded stream against the host twin's (equal outside the cells
+    of the seam points, and everywhere when there are none); 10 frames
+    through cwipc_sink_encoder -> MemoryLink -> cwipc_source_decoder; then
+    the times.  Returns the codec run's launches by kernel."""
+    import struct
+    import warnings
+    import zlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import cwipc_util_tpu_torch as port
+    from cwipc_util_tpu_torch import codec
+    from cwipc_util_tpu_torch.core.pointcloud import cwipc_pointcloud_wrapper
+    from cwipc_util_tpu_torch.net.sink_encoder import cwipc_sink_encoder
+    from cwipc_util_tpu_torch.net.source_decoder import cwipc_source_decoder
+    from cwipc_util_tpu_torch.ops import compaction, voxelize
+    from cwipc_util_tpu_torch.ops.compact_kernel import compact_kernel_cm, compact_plain_cm
+    from cwipc_util_tpu_torch.ops.segment_reduce import segment_reduce_sorted, segment_reduce_sorted_plain
+
+    src = port.cwipc_synthetic(0, CODEC_N, device=c.dev)
+    src.start()
+    f160 = src.get()
+    body = c.pts.copy()
+    body["tile"] = np.where(body["x"] > 0, body["tile"] | 0x80, body["tile"])
+    f1m = port.cwipc_from_numpy_array(body, 1, device=c.dev)
+    frames = {f"{f160.count()}-point synthetic frame": f160, f"{f1m.count()}-point body": f1m}
+    for pc in frames.values():
+        pc._access_buffer()
+    print(f"{c.card} phase 16: color route {'JPEG plane (cv2)' if codec.jpeg_available() else 'zlib (no cv2)'};"
+          f" native shim {'loaded' if codec.native_loaded() else 'not loaded: the numpy twins run'};"
+          f" frames {list(frames)}; the body's tiles {sorted(set(body['tile'].tolist()))}")
+
+    def encoder(bits, tile, quality=85):
+        """(what to feed, the members whose bytes come out)."""
+        if len(bits) == 1:
+            enc = codec.cwipc_new_encoder(params=codec.cwipc_encoder_params(octree_bits=bits[0], tilenumber=tile,
+                                                                            jpeg_quality=quality))
+            return enc, [enc]
+        group = codec.cwipc_new_encodergroup()
+        return group, [group.addencoder(params=codec.cwipc_encoder_params(octree_bits=b, tilenumber=tile,
+                                                                          jpeg_quality=quality)) for b in bits]
+
+    def encode(pc, bits, tile, quality=85):
+        top, members = encoder(bits, tile, quality)
+        top.feed(pc)
+        return [e.get_bytes() for e in members]
+
+    # the codec path once, counts at 0 just before; the kernel calls recorded
+    calls = []
+    real_k1, real_k3 = voxelize.segment_reduce_sorted, compaction.compact_kernel_cm
+
+    def rec_k1(*args):
+        out = real_k1(*args)
+        calls.append(("segment_reduce", args, out))
+        return out
+
+    def rec_k3(*args):
+        out = real_k3(*args)
+        calls.append(("compact", args, out))
+        return out
+
+    kernels = (segment_reduce_sorted, compact_kernel_cm)
+    streams, reads, per_config = {}, {}, {}
+    voxelize.segment_reduce_sorted, compaction.compact_kernel_cm = rec_k1, rec_k3
+    torch.cuda.synchronize()
+    for f in kernels:
+        f.launches = 0
+    try:
+        for fname, pc in frames.items():
+            for cname, bits, tile in CODEC_CONFIGS:
+                before = {f.__name__: f.launches for f in kernels}
+                torch.cuda.set_sync_debug_mode("warn")
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    streams[fname, cname] = encode(pc, bits, tile)
+                torch.cuda.set_sync_debug_mode("default")
+                reads[fname, cname] = sum("synchroniz" in str(w.message) for w in caught)
+                per_config[fname, cname] = {f.__name__: f.launches - before[f.__name__] for f in kernels}
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        voxelize.segment_reduce_sorted, compaction.compact_kernel_cm = real_k1, real_k3
+    launches = {f.__name__: f.launches for f in kernels}
+    for (fname, cname), got in per_config.items():
+        bits, tile = next((b, t) for n, b, t in CODEC_CONFIGS if n == cname)
+        want = {"segment_reduce_sorted": int(max(bits) <= 9), "compact_kernel_cm": int(tile != 0)}
+        check(got == want, f"codec, {fname}, {cname}: launches {got}, expected {want}")
+        check(reads[fname, cname] == 1, f"codec, {fname}, {cname}: {reads[fname, cname]} host reads, expected 1")
+    check(launches["segment_reduce_sorted"] >= 1 and launches["compact_kernel_cm"] >= 1,
+          f"a kernel of the codec path was not launched: {launches}")
+    print(f"{c.card} phase 16: the codec path (each frame through each configuration) launched {launches};"
+          f" host reads an encode {sorted(set(reads.values()))}; by configuration {per_config}")
+
+    # every kernel call of that run against its plain version on its inputs
+    k_err = {"segment_reduce": 0.0, "compact": 0.0}
+    for name, args, out in calls:
+        want = (segment_reduce_sorted_plain if name == "segment_reduce" else compact_plain_cm)(*args)
+        check(all(same_bits(a, b) for a, b in zip(out, want)), f"codec: kernel {name} differs from its plain version"
+              f" at n={args[0].shape[0]}")
+        k_err[name] = max(k_err[name], max(maxabs(a.float(), b.float()) for a, b in zip(out, want)))
+    print(f"{c.card} phase 16: all {len(calls)} kernel calls of the codec run bit-equal to their plain versions"
+          f" ({sorted({(n, int(a[0].shape[0])) for n, a, _ in calls})})")
+
+    # the plain route: the device program on a CPU copy, its stream, the host twin
+    for fname, pc in frames.items():
+        buf = pc._access_buffer()
+        cpu_pc = cwipc_pointcloud_wrapper(port.PointBuffer(xyz=buf.xyz.cpu(), rgba=buf.rgba.cpu(),
+                                                           count=buf.count.cpu()), pc.timestamp(), pc.cellsize())
+        arr = pc.get_numpy_array()
+        for cname, bits, tile in CODEC_CONFIGS:
+            if len(bits) > 1:  # its shared pass is the solo encode's at its deepest member
+                check(streams[fname, cname][0] == streams[fname, f"solo {bits[0]}, tile {tile}"][0],
+                      f"codec, {fname}: the group's deepest member differs from a solo encode")
+                continue
+            kw = dict(octree_bits=bits[0], exp_factor=1.0, voxelsize=0.0, tilemask=tile)
+            got = codec._encode_device_impl(buf.xyz, buf.rgba, buf.count, **kw)
+            want = codec._encode_device_impl(cpu_pc._buffer.xyz, cpu_pc._buffer.rgba, cpu_pc._buffer.count, **kw)
+            check(all(same_bits(a.cpu(), b) for a, b in zip(got, want)),
+                  f"codec, {fname}, {cname}: the device program differs from its CPU run")
+            m = int(got[0])
+            check(bool((got[2][:m] < 0).any()) == (fname.endswith("body")),
+                  f"codec, {fname}, {cname}: tiles of 0x80 and above expected only in the body")
+            solo = codec.cwipc_new_encoder(params=codec.cwipc_encoder_params(octree_bits=bits[0], tilenumber=tile))
+            solo._feed_device(cpu_pc)
+            cpu_stream = solo.get_bytes()
+            check(streams[fname, cname][0] == cpu_stream,
+                  f"codec, {fname}, {cname}: the stream differs from the CPU copy's device program")
+            # decoded against the host twin (jpeg_quality 100: lossless colors on both)
+            dev_blob = encode(pc, bits, tile, quality=100)[0]
+            solo = codec.cwipc_new_encoder(params=codec.cwipc_encoder_params(octree_bits=bits[0], tilenumber=tile,
+                                                                             jpeg_quality=100))
+            solo._feed_host(cpu_pc)
+            host_blob = solo.get_bytes()
+            step = struct.unpack("<f", dev_blob[20:24])[0]
+            check(step == struct.unpack("<f", host_blob[20:24])[0], f"codec, {fname}, {cname}: steps differ")
+            dec = codec.cwipc_new_decoder(device="cpu")
+            dec.feed(dev_blob)
+            a = dec.get().get_numpy_array()
+            dec.feed(host_blob)
+            b = dec.get().get_numpy_array()
+            seam = seam_cells(arr, step, tile)
+            if len(seam) == 0:
+                check(a.shape == b.shape and all(np.array_equal(a[f], b[f]) for f in ("r", "g", "b", "tile"))
+                      and all(float(np.abs(a[f] - b[f]).max(initial=0.0)) <= step * 1.0001 for f in "xyz"),
+                      f"codec, {fname}, {cname}: decoded device and host-twin streams break the contract")
+            ra, rb = voxel_rows(a, step, seam), voxel_rows(b, step, seam)
+            check(ra.shape == rb.shape and np.array_equal(ra, rb),
+                  f"codec, {fname}, {cname}: decoded device and host-twin voxels differ outside the seam cells")
+            print(f"{c.card} phase 16: {fname}, {cname}: {m} voxels; device program bit-equal to its CPU run,"
+                  f" stream byte-equal ({len(cpu_stream)} bytes); decoded against the host twin: {len(a)} and"
+                  f" {len(b)} voxels, {len(ra)} equal outside {len(seam)} seam cells")
+
+    # 10 frames through the sinks, in process, against the solo decoder's counts
+    link = MemoryLink()
+    sink = cwipc_sink_encoder(link, nodrop=True)
+    dsrc = cwipc_source_decoder(link, device=c.dev)
+    sent = [src.get() for _ in range(ROUNDTRIP_FRAMES)]
+    want = []
+    for pc in sent:
+        dec = codec.cwipc_new_decoder(device=c.dev)
+        dec.feed(encode(pc, (9,), 0)[0])
+        want.append((pc.timestamp(), dec.get().count()))
+    dsrc.start()
+    sink.start()
+    for pc in sent:
+        sink.feed(pc.clone())
+    sink.stop()
+    got = drain(dsrc, ROUNDTRIP_FRAMES)
+    dsrc.stop()
+    src.stop()
+    check([(pc.timestamp(), pc.count()) for pc in got] == want,
+          f"round trip: {[(pc.timestamp(), pc.count()) for pc in got]}, expected {want}")
+    check(all(pc._device.type == "cuda" for pc in got), "round trip: decoded clouds not for the card")
+    print(f"{c.card} phase 16: round trip cwipc_sink_encoder -> MemoryLink -> cwipc_source_decoder: all"
+          f" {len(got)} frames, counts {[n for _, n in want]} as the solo decoder's")
+
+    # times: encode and its parts, decode, the kernels' device time in an encode
+    def host_ms(fn, reps=CODEC_REPS, warm=CODEC_WARM):
+        for _ in range(warm):
+            fn()
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t_0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t_0) * 1e3)
+        return statistics.median(out)
+
+    for fname, pc in frames.items():
+        enc_ms = {}
+        for cname, bits, tile in CODEC_CONFIGS:
+            enc_ms[cname] = host_ms(lambda: encode(pc, bits, tile))
+            blobs = streams[fname, cname]
+            dec = codec.cwipc_new_decoder(device=c.dev)
+
+            def decode():
+                for blob in blobs:
+                    dec.feed(blob)
+                    dec.get()
+
+            def decode_upload():
+                for blob in blobs:
+                    dec.feed(blob)
+                    dec.get()._access_buffer()
+
+            print(f"{c.card} codec {fname}, {cname}: encode median {enc_ms[cname]} ms a frame; decode {host_ms(decode)} ms;"
+                  f" decode and upload to the card {host_ms(decode_upload)} ms ({[len(b) for b in blobs]} bytes;"
+                  f" host clock with synchronize, median of {CODEC_REPS} warm frames)")
+        # the parts of the solo 9-bit encode, as _pack runs them
+        geo = dict(octree_bits=9, exp_factor=1.0, tilemask=0)
+        m, deltas, drgba, step, origin = codec._geometry_device(pc, **geo)
+        keys = np.cumsum(deltas, dtype=np.uint32).astype(np.int64)
+        increasing = bool(np.all(np.diff(keys) > 0))
+        occ = codec._octree_pack(keys, 9)
+        rgb = np.stack([(drgba >> 16) & 0xFF, (drgba >> 8) & 0xFF, drgba & 0xFF], 1).astype(np.uint8)
+
+        def color():
+            blob = codec._jpeg_pack(rgb, 85)
+            return blob if blob is not None and len(blob) < 3 * m // 2 else zlib.compress(rgb.tobytes(), 1)
+
+        parts = {
+            "device program + readback": lambda: codec._geometry_device(pc, **geo),
+            "keys (uint32 cumsum)": lambda: np.cumsum(deltas, dtype=np.uint32).astype(np.int64),
+            "sorted-unique cleanup": lambda: np.all(np.diff(keys) > 0) or np.unique(keys, return_index=True),
+            "octree pack": lambda: codec._octree_pack(keys, 9),
+            "color": color,
+            "zlib (geometry + tiles)": lambda: (zlib.compress(occ.tobytes(), 1),
+                                                zlib.compress(((drgba >> 24) & 0xFF).astype(np.uint8).tobytes(), 1)),
+        }
+        part_ms = {name: host_ms(fn) for name, fn in parts.items()}
+        print(f"{c.card} codec {fname}, solo 9, tile 0, the encode's parts (median ms): {part_ms}; sum"
+              f" {sum(part_ms.values())} ms; keys {'increasing' if increasing else 'not increasing: np.unique ran'}")
+        # device time by kernel inside one encode at 9 bits with the tile mask (kernels 1 and 3)
+        encode(pc, (9,), 1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                encode(pc, (9,), 1)
+            torch.cuda.synchronize()
+        per = [(e.key, e.count // 5, e.device_time_total / 5) for e in prof.key_averages() if e.device_time_total > 0]
+        k13 = {name: sum(us for k, _, us in per if name in k) for name in ("segment_reduce", "compact")}
+        total = sum(us for _, _, us in per)
+        print(f"{c.card} codec {fname}, solo 9, tile 1: device time an encode {total} us (busy"
+              f" {total / 10 / enc_ms['solo 9, tile 1']} % of the encode's host time), of it kernel 1"
+              f" {k13['segment_reduce']} us, kernel 3 {k13['compact']} us (torch.profiler over 5 encodes); the"
+              f" five longest {sorted(((us, k[:40]) for k, _, us in per), reverse=True)[:5]}")
+    print(f"{c.card} phase 16 ok {c.lap()}")
+    return {"launches": launches, "err": k_err}
 
 
 def main() -> int:
@@ -2107,6 +2484,10 @@ def main() -> int:
     s14 = ops_phase(ctx)
     k4 = {"pairs": k4_pairs, "scans": k4_scans, "ms": next(r["ms"] for r in record if r["name"] == "cols_select")}
     record += times_phase(ctx, s12, s13, s14, k4)
+    s16 = codec_phase(ctx)
+    for r in record:
+        r["codec_launches"] = s16["launches"].get({"segment_reduce": "segment_reduce_sorted",
+                                                   "compact": "compact_kernel_cm"}.get(r["name"]), 0)
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

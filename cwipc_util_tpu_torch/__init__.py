@@ -9,7 +9,11 @@ nvcc at first use; so are the nearest-neighbour kernel of the
 multi-camera registration toolkit (``registration/``), the key+payload
 sort (``ops/sort_kernel.py``) and the scan-rate probe
 (``ops/scan_probe.py``).  The filters and their string factory are in
-``filters/``.
+``filters/``.  Clouds are read and written as PLY files, cwipcdump files
+and packets (``io/``), compressed by the CTC1 codec (``codec/``, whose
+geometry stage runs on the card through kernels 1 and 3), and carried
+between threads by the encoder/decoder and passthrough sinks and sources
+(``net/``).
 
 The device is explicit: sources and converters take ``device`` (default
 ``"cuda"``; without CUDA that raises :class:`CwipcError`), and every op
@@ -39,11 +43,24 @@ from .core.buffers import (
 from .core.errors import CwipcError
 from .core.metadata import cwipc_metadata
 from .core.pointcloud import (
+    CWIPC_API_VERSION,
     cwipc_dangling_allocations,
     cwipc_point,
     cwipc_point_array,
+    cwipc_point_numpy_dtype,
     cwipc_pointcloud_wrapper,
+    cwipc_skeleton_collection,
+    cwipc_skeleton_joint,
+    parse_skeleton_collection,
 )
+from .io.dump import (
+    CWIPC_CWIPCDUMP_HEADER,
+    CWIPC_CWIPCDUMP_VERSION,
+    pointcloud_from_packet,
+    read_debugdump,
+    write_debugdump,
+)
+from .io.ply import CWIPC_FLAGS_BINARY, read_ply, write_ply
 from .models.synthetic import cwipc_source_synthetic, cwipc_synthetic
 from .ops import (
     cwipc_colormap,
@@ -65,8 +82,27 @@ from .utils.logging import (
     cwipc_log_configure,
     cwipc_log_default_callback,
 )
+from .version import __version__
 
 import numpy as _np
+
+CWIPC_POINT_PACKETHEADER_MAGIC = 0x20201016
+
+
+def cwipc_get_version() -> str:
+    return __version__
+
+
+def cwipc_from_points(points, timestamp: int, device=None) -> cwipc_pointcloud_wrapper:
+    """Create a pointcloud from a cwipc_point array, a list of 7-tuples or
+    packed record bytes, host-backed on ``device`` (``None`` means CUDA)."""
+    import ctypes as _ctypes
+
+    if not isinstance(points, _ctypes.Array):
+        points = cwipc_point_array(values=points)
+    data = bytes(memoryview(points).cast("B")) if len(points) else b""
+    arr = _np.frombuffer(data, POINT_DTYPE).copy()
+    return cwipc_pointcloud_wrapper(None, timestamp, 0.0, _host_points=arr, device=device)
 
 
 def cwipc_from_numpy_array(np_points, timestamp: int, device=None) -> cwipc_pointcloud_wrapper:
@@ -102,12 +138,53 @@ def cwipc_from_numpy_matrix(np_points_matrix, timestamp: int, device=None) -> cw
     return cwipc_from_numpy_array(arr, timestamp, device)
 
 
+def cwipc_from_o3d_pointcloud(o3d_pc, timestamp: int, device=None) -> cwipc_pointcloud_wrapper:
+    """Create a pointcloud from an Open3D PointCloud (the tile is lost).
+
+    Color scaling quirk preserved from the reference
+    (python/cwipc/util.py:1203-1211): colors are multiplied by 256, not 255.
+    """
+    points = _np.asarray(o3d_pc.points)
+    colors = _np.asarray(o3d_pc.colors)
+    m = _np.zeros((points.shape[0], 7))
+    m[:, 0:3] = points
+    m[:, 3:6] = colors * 256
+    return cwipc_from_numpy_matrix(m, timestamp, device)
+
+
+def cwipc_from_packet(packet, device=None) -> cwipc_pointcloud_wrapper:
+    return pointcloud_from_packet(packet, device)
+
+
+def cwipc_read(filename: str, timestamp: int, device=None) -> cwipc_pointcloud_wrapper:
+    """Read a pointcloud from a .ply file."""
+    return read_ply(filename, timestamp, device)
+
+
+def cwipc_write(filename: str, pointcloud: cwipc_pointcloud_wrapper, flags: int = 0) -> int:
+    """Write a pointcloud to a .ply file (CWIPC_FLAGS_BINARY for binary)."""
+    return write_ply(filename, pointcloud, flags)
+
+
+def cwipc_read_debugdump(filename: str, device=None) -> cwipc_pointcloud_wrapper:
+    return read_debugdump(filename, device)
+
+
+def cwipc_write_debugdump(filename: str, pointcloud: cwipc_pointcloud_wrapper) -> int:
+    return write_debugdump(filename, pointcloud)
+
+
 __all__ = [
+    "CWIPC_API_VERSION",
+    "CWIPC_CWIPCDUMP_HEADER",
+    "CWIPC_CWIPCDUMP_VERSION",
+    "CWIPC_FLAGS_BINARY",
     "CWIPC_LOG_LEVEL_DEBUG",
     "CWIPC_LOG_LEVEL_ERROR",
     "CWIPC_LOG_LEVEL_NONE",
     "CWIPC_LOG_LEVEL_TRACE",
     "CWIPC_LOG_LEVEL_WARNING",
+    "CWIPC_POINT_PACKETHEADER_MAGIC",
     "POINT_DTYPE",
     "POINT_SIZE",
     "CwipcError",
@@ -124,6 +201,10 @@ __all__ = [
     "cwipc_downsample",
     "cwipc_from_numpy_array",
     "cwipc_from_numpy_matrix",
+    "cwipc_from_o3d_pointcloud",
+    "cwipc_from_packet",
+    "cwipc_from_points",
+    "cwipc_get_version",
     "cwipc_join",
     "cwipc_join_multi",
     "cwipc_log_configure",
@@ -131,8 +212,11 @@ __all__ = [
     "cwipc_metadata",
     "cwipc_point",
     "cwipc_point_array",
+    "cwipc_point_numpy_dtype",
     "cwipc_pointcloud_abstract",
     "cwipc_pointcloud_wrapper",
+    "cwipc_read",
+    "cwipc_read_debugdump",
     "cwipc_remove_outliers",
     "cwipc_sink_abstract",
     "cwipc_source_abstract",
@@ -140,6 +224,8 @@ __all__ = [
     "cwipc_synthetic",
     "cwipc_tilefilter",
     "cwipc_tilemap",
+    "cwipc_write",
+    "cwipc_write_debugdump",
     "downsample_outliers_tilefilter",
     "downsample_outliers_tilefilter_exact",
     "resolve_device",

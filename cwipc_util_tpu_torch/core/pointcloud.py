@@ -1,13 +1,15 @@
 """Host-side point-cloud object with the reference-compatible API.
 
-The port of cwipc_util_tpu/core/pointcloud.py, restricted to what the
-ported ops use: construction from a device buffer or from host points, the
-accessors (``get_numpy_matrix`` included), the timestamp/cellsize setters,
-clone/free and the allocation counter.  The native handoff
-(``as_cwipc_p``) and ``get_packet`` are not ported yet.
+The port of cwipc_util_tpu/core/pointcloud.py: construction from a
+device buffer or from host points, the accessors, the timestamp/cellsize
+setters, clone/free/detach, the allocation counter, the packet and the
+native handoff (``as_cwipc_p``, through the port's loader in ``util.py``),
+and the skeleton structs of the body-tracking metadata.
 
 As in the JAX package, points live on the device and the host accessors
 copy lazily and cache; ``count`` stays a device scalar until asked for.
+A host-backed cloud (``_host_points``) remembers the device its buffer
+goes to, and keeps it through clone and detach.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from .buffers import (
 )
 from .errors import CwipcError
 from .metadata import cwipc_metadata
+
+CWIPC_API_VERSION = 0x20260129
 
 # ---------------------------------------------------------------------------
 # ctypes point record — bit-compatible with the reference
@@ -67,6 +71,16 @@ class cwipc_point(ctypes.Structure):
 
 
 assert ctypes.sizeof(cwipc_point) == POINT_SIZE
+
+cwipc_point_numpy_dtype = [
+    ("x", "<f4"),
+    ("y", "<f4"),
+    ("z", "<f4"),
+    ("r", "u1"),
+    ("g", "u1"),
+    ("b", "u1"),
+    ("tile", "u1"),
+]
 
 
 def cwipc_point_array(
@@ -161,6 +175,7 @@ class cwipc_pointcloud_wrapper:
         if _host_points is not None and _count_hint is None:
             _count_hint = int(_host_points.shape[0])
         self._count_cache: Optional[int] = _count_hint
+        self._native_handle: Optional[ctypes.c_void_p] = None
         self._owned = buffer is not None or _host_points is not None
         if self._owned:
             _track_alloc()
@@ -176,11 +191,31 @@ class cwipc_pointcloud_wrapper:
         if self._owned:
             self._owned = False
             _track_dealloc()
+        if self._native_handle:
+            from ..util import cwipc_util_dll_load
+
+            dll = cwipc_util_dll_load()
+            dll.cwipc_pointcloud_free.argtypes = [ctypes.c_void_p]
+            dll.cwipc_pointcloud_free(self._native_handle)
+            self._native_handle = None
         self._buffer = None
         self._lazy_host = None
         self._np_cache = None
         self._points = None
         self._bytes = None
+
+    def detach(self) -> "cwipc_pointcloud_wrapper":
+        """Hand ownership to a new wrapper; self no longer frees the data."""
+        rv = cwipc_pointcloud_wrapper.__new__(cwipc_pointcloud_wrapper)
+        rv.__dict__.update(self.__dict__)
+        self._owned = False
+        self._native_handle = None  # rv owns the native twin now
+        self._buffer = None
+        self._lazy_host = None
+        self._np_cache = None
+        self._points = None
+        self._bytes = None
+        return rv
 
     def clone(self) -> "cwipc_pointcloud_wrapper":
         """Shallow copy: shares the buffer(s), new identity."""
@@ -194,6 +229,31 @@ class cwipc_pointcloud_wrapper:
     def _assert_alive(self) -> None:
         if self._buffer is None and self._lazy_host is None:
             raise CwipcError("cwipc: pointcloud already freed")
+
+    def as_cwipc_p(self) -> ctypes.c_void_p:
+        """ctypes handle of a native twin of this cloud, for C code built
+        against the native ABI (reference: util.py:594-597).  The first call
+        builds the twin through the native ``cwipc_from_packet`` (same
+        points, timestamp and cellsize); it is cached, freed with this
+        wrapper and handed on by ``detach()``."""
+        self._assert_alive()
+        if self._native_handle:
+            return self._native_handle
+        from ..util import cwipc_util_dll_load
+
+        dll = cwipc_util_dll_load()
+        dll.cwipc_from_packet.restype = ctypes.c_void_p
+        dll.cwipc_from_packet.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_uint64,
+        ]
+        packet = bytes(self.get_packet())
+        err = ctypes.c_char_p(None)
+        handle = dll.cwipc_from_packet(packet, len(packet), ctypes.byref(err), CWIPC_API_VERSION)
+        if not handle:
+            raise CwipcError(err.value.decode("utf8") if err.value else "cwipc_from_packet failed")
+        self._native_handle = ctypes.c_void_p(handle)
+        return self._native_handle
 
     # -- accessors ---------------------------------------------------------
 
@@ -275,7 +335,60 @@ class cwipc_pointcloud_wrapper:
             m[:, 6] = arr["tile"]
         return m
 
+    def get_o3d_pointcloud(self):
+        """An Open3D point cloud of this cloud (needs open3d installed)."""
+        import open3d  # optional dependency, imported only here
+
+        m = self.get_numpy_matrix()
+        pc = open3d.geometry.PointCloud()
+        pc.points = open3d.utility.Vector3dVector(m[:, 0:3].astype(np.float64))
+        pc.colors = open3d.utility.Vector3dVector((m[:, 3:6] / 255.0).astype(np.float64))
+        return pc
+
+    def get_packet(self) -> bytearray:
+        from ..io.dump import packet_from_pointcloud
+
+        return packet_from_pointcloud(self)
+
     def access_metadata(self) -> cwipc_metadata:
         if self._metadata is None:
             self._metadata = cwipc_metadata()
         return self._metadata
+
+
+# ---------------------------------------------------------------------------
+# Skeleton structures (k4abt body tracking interop,
+# reference: include/cwipc_util/api.h:118-141, python/cwipc/util.py)
+# ---------------------------------------------------------------------------
+
+
+class cwipc_skeleton_joint(ctypes.Structure):
+    """Per-joint skeleton information as reported by a body tracker."""
+
+    _fields_ = [
+        ("confidence", ctypes.c_uint32),
+        ("x", ctypes.c_float),
+        ("y", ctypes.c_float),
+        ("z", ctypes.c_float),
+        ("q_w", ctypes.c_float),
+        ("q_x", ctypes.c_float),
+        ("q_y", ctypes.c_float),
+        ("q_z", ctypes.c_float),
+    ]
+
+
+class cwipc_skeleton_collection(ctypes.Structure):
+    """Header of a skeleton collection; joints follow contiguously."""
+
+    _fields_ = [
+        ("n_skeletons", ctypes.c_uint32),
+        ("n_joints", ctypes.c_uint32),
+    ]
+
+
+def parse_skeleton_collection(data: bytes):
+    """Parse a skeleton-collection metadata blob into
+    (n_skeletons, n_joints, [joint, ...])."""
+    hdr = cwipc_skeleton_collection.from_buffer_copy(data[:8])
+    joints = (cwipc_skeleton_joint * (hdr.n_skeletons * hdr.n_joints)).from_buffer_copy(data[8:])
+    return hdr.n_skeletons, hdr.n_joints, list(joints)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..core.buffers import PointBuffer, pack_rgba, unpack_rgba
+from ..core.errors import CwipcError
 from .segment_reduce import SENTINEL, segment_reduce_sorted
 
 # Quantized coordinates are clamped to +/-2^29 so the sentinel (INT32_MAX)
@@ -69,8 +70,15 @@ def morton3(vx: torch.Tensor, vy: torch.Tensor, vz: torch.Tensor) -> torch.Tenso
     return (_part1by2(vz) << 2) | (_part1by2(vy) << 1) | _part1by2(vx)
 
 
-def _cell_f32(cellsize) -> tuple[float, float]:
-    """(cell, 1/cell), each rounded to f32 as the JAX package rounds them."""
+def _cell_f32(cellsize):
+    """(cell, 1/cell), each rounded to f32 as the JAX package rounds them
+    (IEEE f32 division is correctly rounded on the host and on the card):
+    Python floats for a number, 0-dim f32 tensors for a 0-dim tensor, so a
+    cell size computed on the device (the codec's step) is never read by
+    the host."""
+    if isinstance(cellsize, torch.Tensor):
+        cell = cellsize.to(torch.float32)
+        return cell, torch.ones_like(cell) / cell
     cell = np.float32(cellsize)
     return float(cell), float(np.float32(1.0) / cell)
 
@@ -156,7 +164,8 @@ def _reduce_segments(new_seg, sx, sy, sz, srgba, count, ocap: int) -> PointBuffe
     idx = torch.arange(cap, dtype=torch.int32, device=dev)
     seg = torch.cumsum(new_seg, 0, dtype=torch.int32) - 1
     last = torch.clamp(count - 1, 0, max(cap - 1, 0)).long()
-    total = torch.where(count > 0, seg[last] + 1, 0) if cap else torch.zeros_like(count)
+    # index_select, not seg[last]: a 0-dim index tensor would be read by the host
+    total = torch.where(count > 0, seg.index_select(0, last.view(1)).view(()) + 1, 0) if cap else torch.zeros_like(count)
     row = torch.where((idx < count) & (seg < ocap), seg, ocap).long()
     r, g, b, tile = unpack_rgba(srgba)
     bits = (tile[:, None] >> torch.arange(8, dtype=torch.int32, device=dev)) & 1
@@ -205,8 +214,9 @@ def _downsample_exact(buf: PointBuffer, cellsize, ocap: int) -> PointBuffer:
 
 def downsample(buf: PointBuffer, cellsize, out_capacity: int | None = None,
                exact_keys: bool = False, merged_exact: bool = False) -> PointBuffer:
-    """Voxel-grid downsample at ``cellsize`` (> 0).  The output has
-    capacity ``out_capacity`` (default: the input's), in Morton order.
+    """Voxel-grid downsample at ``cellsize`` (> 0): a Python number or a
+    0-dim float tensor on the buffer's device.  The output has capacity
+    ``out_capacity`` (default: the input's), in Morton order.
 
     The fast path (default) needs the scene under 1023 cells per axis;
     ``exact_keys`` takes any scene (``ops.cwipc_downsample`` picks).
@@ -214,6 +224,9 @@ def downsample(buf: PointBuffer, cellsize, out_capacity: int | None = None,
     JAX package's merged (vy, vz) key gives the same voxels in the same
     order, and here both forms would cost the same two int64 sorts."""
     ocap = buf.capacity if out_capacity is None else out_capacity
+    if isinstance(cellsize, torch.Tensor) and (cellsize.dim() != 0 or cellsize.device != buf.device):
+        raise CwipcError(f"downsample: a tensor cell size must be 0-dim on {buf.device}, got shape"
+                         f" {tuple(cellsize.shape)} on {cellsize.device}")
     if exact_keys:
         return _downsample_exact(buf, cellsize, ocap)
     x, y, z, rgba, cnt = downsample_cm(buf, cellsize, ocap)

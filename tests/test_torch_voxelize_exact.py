@@ -13,6 +13,7 @@ bit-equal; the JAX package's two forms are each held against it."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import cwipc_util_tpu as jcwipc
 import cwipc_util_tpu_torch as port
@@ -132,3 +133,22 @@ def test_cwipc_downsample_wide(half, cell):
     for f in ("x", "y", "z"):
         np.testing.assert_allclose(pa[f], ja[f], rtol=1e-6, atol=1e-6 * half)
     assert pout.timestamp() == 7 and pout.cellsize() == pytest.approx(cell)
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["fast", "exact-key"])
+def test_tensor_cell_size_bit_equal_to_float(exact):
+    """A cell size given as a 0-dim f32 tensor (as the codec computes its
+    step on the device) and as a Python float: the same bits on both
+    downsample forms (count, every coordinate and rgba word).  The cell is
+    not an f32 number, so its rounding and 1/cell's are exercised."""
+    xyz, rgba = _clustered_scene(nclusters=4, per=500, half=1.0)
+    x, r, n = _padded(xyz, rgba, 4096)
+    buf = port.buffer_from_arrays(x, r, n, device="cpu")
+    cell = 0.0123
+    a = pvox.downsample(buf, cell, exact_keys=exact).to_numpy_arrays()
+    b = pvox.downsample(buf, torch.tensor(cell, dtype=torch.float32), exact_keys=exact).to_numpy_arrays()
+    assert a[2] == b[2] > 100
+    np.testing.assert_array_equal(a[0].view(np.uint32), b[0].view(np.uint32))
+    np.testing.assert_array_equal(a[1], b[1])
+    with pytest.raises(port.CwipcError, match="0-dim"):
+        pvox.downsample(buf, torch.tensor([cell]), exact_keys=exact)
