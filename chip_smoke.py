@@ -115,7 +115,34 @@ phases that each stop the run at the first failure:
    decoder's counts; encode and decode ms a frame, the encode's parts and
    the kernels' device time inside an encode.  It prints the color route
    (JPEG needs cv2) and whether the native shim, built with make into
-   ``cwipc_util_tpu_torch/_build/native/``, loaded.
+   ``cwipc_util_tpu_torch/_build/native/``, loaded;
+17. the command line (``cli_phase``), on the default device: (a)
+   ``python -m cwipc_util_tpu_torch create_analysis_test`` of the 3-camera
+   30k scene and ``register --nograb --nocoarse --nofloor -v`` on it, as
+   subprocesses in a temporary directory (the last overall correspondence
+   below 0.006 and a third of the first; the cameraconfig's 3 trafos and
+   correspondence), then the register script's ``main()`` in this process
+   on the same file, timed, with the kernels' counts set to 0 just before
+   and read just after (kernels 5 and 3 must run), the inputs of its every
+   kernel 5 and kernel 3 call recorded and, after the run, each call held
+   to its plain version as phase 9 holds the flow's (kernel 5's d2
+   bit-equal and ids equal, kernel 3 bit-equal); (b) a rig's recordings:
+   4 per-camera PLY files of the synthetic source's default 160,000-point
+   frame (simulatecams 4, soft, seed 5; 2 mm noise; each tile moved by
+   its own 3 cm / 0.06 rad perturbation) registered by ``register
+   --nocoarse --nofloor <dir>`` in process (every kernel 5 and kernel 3
+   call held to its plain version as in (a)), then 2 frames of the playback
+   capturer fused on the card with the summed per-camera counts, 0 host
+   reads and 4 uploads a frame; (c) ``MultiCameraCoarseAruco`` on the
+   marker scene of tests/test_registration.py:420-464 with 3 cameras at 3
+   offsets, on a CUDA cloud: every marker centre within 2 cm of the
+   origin, the transforms within 1e-9 of a CPU copy's run; (d) 10 frames
+   of the 160k source through ``cwipc_sink_encoder`` ->
+   ``cwipc_sink_netserver`` -> ``cwipc_source_netclient`` -> decoder on
+   127.0.0.1 with the solo decoder's counts, frames per second; 3 frames
+   through ``cwipc_proxy`` from a raw socket client, equal to the records
+   sent, 0 host reads and 1 upload a frame; the synchronizer fusing two
+   tiles on the card with 0 host reads.
 
 Each phase line ends with the wall seconds the phase took.  The kernels
 line gives, per kernel, its time, its plain version's, its bound (the
@@ -127,7 +154,8 @@ and points the function must read) and, where one PyTorch call computes
 the same function, that call's time.  ``launches`` is the count of the
 main path's run; kernels 6 and 7 are on no path (as in the JAX package),
 and theirs is the count of phase 12's sort -> kernel 1 run and phase 13's
-probe run.  ``codec_launches`` is the count of phase 16's codec run.
+probe run.  ``codec_launches`` is the count of phase 16's codec run,
+``register_launches`` that of phase 17 (a)'s in-process register run.
 
 Run alone, outside a checkout, or without CUDA, it exits 2 and prints no
 result.
@@ -1470,6 +1498,435 @@ def codec_phase(c):
     return {"launches": launches, "err": k_err}
 
 
+# ---------------------------------------------------------------------------
+# phase 17, the command line on the card: the register flow through
+# ``python -m cwipc_util_tpu_torch``, a rig's recordings, coarse ArUco, the
+# socket pair and the proxy
+# ---------------------------------------------------------------------------
+
+CLI_ARGS = ("--ncamera", "3", "--npoints", "30000", "--noise", "0.002", "--translation", "0.03",
+            "--rotation", "0.06")
+RIG_CAMERAS, RIG_SEED, RIG_FRAMES = 4, 5, 2
+MARKER_OFFSETS = ((0.3, 0.0, -0.2), (-0.25, 0.05, 0.1), (0.1, -0.03, 0.35))
+SOCKET_FRAMES, PROXY_FRAMES, PROXY_N = 10, 3, 20000
+# a kernel record's name -> (module, wrapper) of the kernel
+KERNEL_WRAPPERS = {
+    "segment_reduce": ("segment_reduce", "segment_reduce_sorted"),
+    "window_knn": ("window_knn", "window_knn_mean_distance_cm"),
+    "compact": ("compact_kernel", "compact_kernel_cm"),
+    "cols_select": ("cols_select", "cols_select"),
+    "nn_select": ("nn_select", "nn_select"),
+    "sort_by_key": ("sort_kernel", "sort_by_key"),
+    "scan_program": ("scan_probe", "scan_program"),
+}
+
+
+def kernel_wrappers():
+    import importlib
+
+    return {name: getattr(importlib.import_module(f"cwipc_util_tpu_torch.ops.{mod}"), fn)
+            for name, (mod, fn) in KERNEL_WRAPPERS.items()}
+
+
+def cli(cwd, *args, timeout=600):
+    """One command of the port, as a user types it, from cwd."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+    rv = subprocess.run([sys.executable, "-m", "cwipc_util_tpu_torch", *args], cwd=cwd, env=env,
+                        capture_output=True, text=True, timeout=timeout)
+    check(rv.returncode == 0, f"cwipc {' '.join(args)}: exit {rv.returncode}: {rv.stderr[-1500:]}")
+    return rv.stdout
+
+
+def overall(stdout):
+    """The register script's overall correspondences, stage by stage."""
+    import re
+
+    return [float(v) for v in re.findall(r"overall correspondence (\d+\.\d+)", stdout)]
+
+
+def register_in_process(c, cwd, *args):
+    """The register script's main() in this process, from cwd, with every
+    kernel's count set to 0 just before and read just after: (stdout,
+    wall seconds, launches by kernel record name, the aligner runs' search:
+    how many took the column grid (kernel 5) and how many the two-scale
+    search, where no grid fits).  The inputs of every kernel 5 and kernel 3
+    call of the run are recorded as it runs, and after it each call is
+    held to its plain version as phase 9 holds the flow's: kernel 5's d2
+    bit-equal and ids equal, kernel 3 bit-equal."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cwipc_util_tpu_torch.ops import compaction, knn
+    from cwipc_util_tpu_torch.registration import fine
+    from cwipc_util_tpu_torch.scripts import cwipc_register
+
+    wrappers = kernel_wrappers()
+    out, argv, here = io.StringIO(), sys.argv, os.getcwd()
+    real_params, searches = fine.nn_grid_params, {"grid": 0, "two-scale": 0}
+    real_select, real_compact = knn.nn_select, compaction.compact_kernel_cm
+    grids, compactions = [], []
+
+    def recording_params(*a, **kw):
+        g = real_params(*a, **kw)
+        searches["two-scale" if g is None else "grid"] += 1
+        return g
+
+    def recording_select(*planes, **kw):
+        grids.append((planes, kw))
+        return real_select(*planes, **kw)
+
+    def recording_compact(*a):
+        compactions.append(a)
+        return real_compact(*a)
+
+    os.chdir(cwd)
+    sys.argv = ["cwipc register", *args]
+    fine.nn_grid_params = recording_params
+    knn.nn_select, compaction.compact_kernel_cm = recording_select, recording_compact
+    torch.cuda.synchronize()
+    for f in wrappers.values():
+        f.launches = 0
+    t_0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cwipc_register.main()
+        torch.cuda.synchronize()
+    finally:
+        fine.nn_grid_params = real_params
+        knn.nn_select, compaction.compact_kernel_cm = real_select, real_compact
+        sys.argv = argv
+        os.chdir(here)
+    wall = time.perf_counter() - t_0
+    launches = {name: f.launches for name, f in wrappers.items()}
+    check(rc == 0, f"register {' '.join(args)} (in process): exit {rc}")
+    check(len(grids) == launches["nn_select"] and len(compactions) == launches["compact"],
+          f"register {' '.join(args)}: {len(grids)} kernel 5 and {len(compactions)} kernel 3 calls recorded,"
+          f" launches {launches}")
+    for planes, kw in grids:
+        c.nn_case(planes[:3], planes[3:], kw["gy"], kw["gz"], kw["cap_r"], kw["cap_q"], f"register grid {kw}")
+    for a in compactions:
+        c.compact_case(*a)
+    print(f"{c.card} phase 17: register {' '.join(args)}: kernel 5 equal to its plain version on all {len(grids)}"
+          f" reference/query grid pairs of the run, at (gy, gz, cap_r, cap_q)"
+          f" {sorted({(kw['gy'], kw['gz'], kw['cap_r'], kw['cap_q']) for _, kw in grids})}; kernel 3 bit-equal to"
+          f" its plain version on all {len(compactions)} compactions, at capacities"
+          f" {sorted({int(a[0].shape[0]) for a in compactions})}")
+    return out.getvalue(), wall, launches, searches
+
+
+def stage_seconds(stdout):
+    """The register script's own stage times (-v): the analyses and the run."""
+    import re
+
+    found = re.findall(r"register: (alignment \w+)[^(]*\(analyzer ran (\d+\.\d+)s\)|register: (.*) ran for (\d+\.\d+)s",
+                       stdout)
+    return [(a or c, float(b or d)) for a, b, c, d in found]
+
+
+def host_reads(fn):
+    """(fn's result, its device-to-host reads, its uploads): CUDA's sync
+    debug mode counts the synchronizing calls; the upload of a host-backed
+    cloud (a host-to-device copy, synchronizing too) is counted apart."""
+    import warnings
+
+    import torch
+
+    from cwipc_util_tpu_torch.core import pointcloud as pcmod
+
+    real, uploads = pcmod.buffer_from_numpy, [0]
+
+    def upload(*a, **kw):
+        uploads[0] += 1
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    torch.cuda.synchronize()
+    pcmod.buffer_from_numpy = upload
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        pcmod.buffer_from_numpy = real
+    return out, sum("synchroniz" in str(w.message) for w in caught), uploads[0]
+
+
+def marker_scene(offsets=MARKER_OFFSETS):
+    """An Nx7 matrix: an ArUco 5x5 marker 0 with its white quiet zone as a
+    floor of points, 0.2 m a side (tests/test_registration.py:420-464),
+    once per camera at its offset, as tiles 1, 2, 4, ..."""
+    import cv2
+    import numpy as np
+
+    dictionary = cv2.aruco.getPredefinedDictionary(cv2.aruco.DICT_5X5_250)
+    marker_px, pad = 100, 30
+    canvas = np.full((marker_px + 2 * pad, marker_px + 2 * pad), 255, np.uint8)
+    canvas[pad:pad + marker_px, pad:pad + marker_px] = cv2.aruco.generateImageMarker(dictionary, 0, marker_px)
+    size = canvas.shape[0]
+    spacing = 0.2 / marker_px
+    ys, xs = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    floor = np.zeros((size * size, 7), np.float32)
+    floor[:, 0] = (xs.ravel() - size / 2) * spacing
+    floor[:, 2] = (ys.ravel() - size / 2) * spacing
+    floor[:, 3] = floor[:, 4] = floor[:, 5] = canvas.ravel()
+    parts = []
+    for cam, offset in enumerate(offsets):
+        part = floor.copy()
+        part[:, 0:3] += np.asarray(offset, np.float32)
+        part[:, 6] = 1 << cam
+        parts.append(part)
+    return np.concatenate(parts)
+
+
+def free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def cli_phase(c):
+    """Phase 17: the command line, on the default device (CUDA)."""
+    import json
+    import shutil
+    import socket
+    import struct
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import cwipc_util_tpu_torch as port
+    from cwipc_util_tpu_torch import codec
+    from cwipc_util_tpu_torch.filters.noise import NoiseFilter
+    from cwipc_util_tpu_torch.filters.simulatecams import SimulatecamsFilter
+    from cwipc_util_tpu_torch.net import sink_encoder, sink_netserver, source_decoder, source_netclient
+    from cwipc_util_tpu_torch.net.source_synchronizer import cwipc_source_synchronizer
+    from cwipc_util_tpu_torch.registration import coarse
+    from cwipc_util_tpu_torch.registration.util import cwipc_transform
+
+    work = tempfile.mkdtemp(prefix="cwipc-cli-")
+    try:
+        # (a) the metric scene through the entry point
+        os.makedirs(os.path.join(work, "a", "again"))
+        cwd = os.path.join(work, "a")
+        t_0 = time.perf_counter()
+        cli(cwd, "create_analysis_test", *CLI_ARGS, "testpc.ply")
+        create_s = time.perf_counter() - t_0
+        t_0 = time.perf_counter()
+        stdout = cli(cwd, "register", "--nograb", "testpc.ply", "--nocoarse", "--nofloor", "-v")
+        sub_s = time.perf_counter() - t_0
+        corr = overall(stdout)
+        check(len(corr) >= 2 and corr[-1] < 0.006 and corr[-1] < corr[0] / 3,
+              f"register (a): overall correspondence {corr}")
+        with open(os.path.join(cwd, "cameraconfig.json")) as fp:
+            cfg = json.load(fp)
+        check(len(cfg["camera"]) == 3 and 0 < cfg["correspondence"] < 0.006,
+              f"register (a): cameraconfig {len(cfg['camera'])} cameras, correspondence {cfg.get('correspondence')}")
+        shutil.copy(os.path.join(cwd, "testpc.ply"), os.path.join(cwd, "again"))
+        stdout, reg_s, launches, searches = register_in_process(
+            c, os.path.join(cwd, "again"), "--nograb", "testpc.ply", "--nocoarse", "--nofloor", "-v")
+        corr_in = overall(stdout)
+        check(len(corr_in) >= 2 and corr_in[-1] < 0.006 and corr_in[-1] < corr_in[0] / 3,
+              f"register (a), in process: overall correspondence {corr_in}")
+        check(launches["nn_select"] >= 1 and launches["compact"] >= 1,
+              f"register (a): kernels 5 and 3 must run: {launches}")
+        print(f"{c.card} phase 17 (a): create_analysis_test {CLI_ARGS} in {create_s} s and register --nograb"
+              f" --nocoarse --nofloor -v in {sub_s} s (subprocesses, each with its start); overall correspondence"
+              f" {corr}; cameraconfig correspondence {cfg['correspondence']}; the register script's main() in"
+              f" process: {reg_s} s wall (stages {stage_seconds(stdout)}), overall correspondence {corr_in},"
+              f" launches {launches}, aligner searches {searches}")
+
+        # (b) the recordings flow at a rig's size
+        rig = os.path.join(work, "rig")
+        os.makedirs(rig)
+        body = port.cwipc_synthetic(device=c.dev)
+        body.start()
+        pc = body.get()
+        body.stop()
+        pc = SimulatecamsFilter(RIG_CAMERAS, hard=False, seed=RIG_SEED).filter(pc)
+        pc = NoiseFilter(0.002, seed=RIG_SEED + 1).filter(pc)
+        counts = []
+        for cam in range(RIG_CAMERAS):
+            moved = cwipc_transform(port.cwipc_tilefilter(pc, 1 << cam), perturbation(100 + cam, 0.03, 0.06))
+            counts.append(moved.count())
+            port.cwipc_write(os.path.join(rig, f"camera{cam}.ply"), moved, port.CWIPC_FLAGS_BINARY)
+        stdout, rig_s, rig_launches, rig_searches = register_in_process(
+            c, os.path.dirname(os.path.abspath(__file__)), "--nocoarse", "--nofloor", "-v", rig)
+        corr_rig = overall(stdout)
+        check(len(corr_rig) >= 2 and corr_rig[-1] < corr_rig[0] / 3, f"register (b): overall correspondence {corr_rig}")
+        with open(os.path.join(rig, "cameraconfig.json")) as fp:
+            cfg = json.load(fp)
+        check(cfg["type"] == "playback" and len(cfg["camera"]) == RIG_CAMERAS,
+              f"register (b): cameraconfig type {cfg['type']}, {len(cfg['camera'])} cameras")
+        cfg.update(loop=True, _config_dir=rig)
+        cap = port.cwipc_capturer(json.dumps(cfg), c.dev)
+        check(cap.start(), "the rig's playback capturer did not start")
+        frames = []
+        for _ in range(RIG_FRAMES):
+            t_0 = time.perf_counter()
+            fused, reads, uploads = host_reads(cap.get)
+            torch.cuda.synchronize()
+            frames.append((time.perf_counter() - t_0, reads, uploads))
+            check(fused._device.type == c.dev.type and fused.count() == sum(counts),
+                  f"fused replay: {fused.count()} points on {fused._device}, expected {sum(counts)} on the card")
+            check(reads == 0 and uploads == RIG_CAMERAS,
+                  f"fused replay: {reads} host reads and {uploads} uploads, expected 0 and {RIG_CAMERAS}")
+            tiles = fused.get_numpy_array()["tile"]
+            check([int((tiles == 1 << cam).sum()) for cam in range(RIG_CAMERAS)] == counts,
+                  f"fused replay: tiles {np.unique(tiles, return_counts=True)}, expected {counts}")
+        cap.stop()
+        print(f"{c.card} phase 17 (b): {RIG_CAMERAS} recordings of {counts} points (simulatecams seed {RIG_SEED},"
+              f" 3 cm / 0.06 rad, 2 mm noise): register --nocoarse --nofloor in process {rig_s} s wall (stages"
+              f" {stage_seconds(stdout)}), overall correspondence {corr_rig}, launches {rig_launches}, aligner"
+              f" searches {rig_searches}; {RIG_FRAMES} fused frames of"
+              f" cwipc_capturer(cameraconfig.json) on the card, (s, host reads, uploads) {frames}")
+
+        # (c) coarse ArUco on the marker scene, on the card and on a CPU copy
+        m = marker_scene()
+        results = {}
+        for label, where in (("card", c.dev), ("CPU copy", torch.device("cpu"))):
+            algo = coarse.MultiCameraCoarseAruco()
+            scene = port.cwipc_from_numpy_matrix(m, 0, device=where)
+            algo.set_tiled_pointcloud(scene)
+            torch.cuda.synchronize()
+            t_0 = time.perf_counter()
+            ok = algo.run()
+            torch.cuda.synchronize()
+            results[label] = (ok, [np.asarray(T) for T in algo.get_result_transformations()],
+                              time.perf_counter() - t_0)
+            check(ok and len(results[label][1]) == 3, f"coarse on {where}: not registered")
+            for cam, T in enumerate(results[label][1]):
+                center = cwipc_transform(port.cwipc_tilefilter(scene, 1 << cam), T).get_numpy_matrix(True).mean(0)
+                check(np.linalg.norm(center) < 0.02, f"coarse on {where}: camera {cam} marker centre at {center}")
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(results["card"][1], results["CPU copy"][1]))
+        check(diff <= 1e-9, f"coarse: the card's transforms differ from the CPU copy's by {diff}")
+        print(f"{c.card} phase 17 (c): MultiCameraCoarseAruco on {len(m)} points (3 cameras): {results['card'][2]} s"
+              f" on the card, {results['CPU copy'][2]} s on a CPU copy; transforms equal within {diff}")
+
+        # (d) the sockets: encoder -> netserver -> netclient -> decoder, and the proxy
+        src = port.cwipc_synthetic(device=c.dev)
+        src.start()
+        sent = [src.get() for _ in range(SOCKET_FRAMES)]
+        src.stop()
+        want = []
+        for pc in sent:
+            enc = codec.cwipc_new_encoder(octree_bits=9)
+            enc.feed(pc)
+            dec = codec.cwipc_new_decoder(device=c.dev)
+            dec.feed(enc.get_bytes())
+            want.append((pc.timestamp(), dec.get().count()))
+        port_no = free_port()
+        sink = sink_encoder.cwipc_sink_encoder(sink_netserver.cwipc_sink_netserver(port_no, nodrop=True), nodrop=True)
+        sink.set_encoder_params([{}], octree_bits=9)
+        sink.start()
+        dsrc = source_decoder.cwipc_activesource_decoder(
+            source_netclient.cwipc_source_netclient(f"127.0.0.1:{port_no}"), device=c.dev)
+        dsrc.start()
+        time.sleep(0.3)
+        t_0 = time.perf_counter()
+        for pc in sent:
+            sink.feed(pc.clone())
+        got = drain(dsrc, SOCKET_FRAMES)
+        socket_s = time.perf_counter() - t_0
+        dsrc.stop()
+        sink.stop()
+        check([(pc.timestamp(), pc.count()) for pc in got] == want,
+              f"sockets: {[(pc.timestamp(), pc.count()) for pc in got]}, expected {want}")
+        check(all(pc._device.type == c.dev.type for pc in got), "sockets: decoded clouds not for the card")
+        print(f"{c.card} phase 17 (d): {len(got)} frames of the 160k source through cwipc_sink_encoder ->"
+              f" cwipc_sink_netserver -> cwipc_source_netclient -> decoder on 127.0.0.1 in {socket_s} s"
+              f" ({len(got) / socket_s} frames/s); counts {[n for _, n in want]} as the solo decoder's")
+
+        rng = np.random.default_rng(17)
+        port_no = free_port()
+        psrc = port.cwipc_proxy("127.0.0.1", port_no, device=c.dev)
+        conn = socket.create_connection(("127.0.0.1", port_no), timeout=10)
+        proxied = []
+        try:
+            for i in range(PROXY_FRAMES):
+                pts = np.zeros(PROXY_N, port.POINT_DTYPE)
+                for f in ("x", "y", "z"):
+                    pts[f] = rng.uniform(-1, 1, PROXY_N)
+                for f in ("r", "g", "b", "tile"):
+                    pts[f] = rng.integers(0, 256, PROXY_N)
+                payload = pts.tobytes()
+                conn.sendall(struct.pack("<IIQfI", 0x20201016, len(payload), 5000 + i, 0.01, 0) + payload)
+                check(struct.unpack("<Q", conn.recv(8))[0] == 5000 + i, f"proxy: frame {i} not acknowledged")
+                pc, reads, uploads = host_reads(lambda: port.cwipc_tilefilter(psrc.get(), 0))
+                check(reads == 0 and uploads == 1, f"proxy: frame {i}: {reads} host reads, {uploads} uploads")
+                check(pc._device.type == c.dev.type and pc.timestamp() == 5000 + i and bytes(pc.get_bytes()) == payload,
+                      f"proxy: frame {i} is not the records sent")
+                proxied.append(pc.count())
+        finally:
+            conn.close()
+            psrc.stop()
+        # the synchronizer: two tiles of a frame as host-backed clouds for the card
+        arr = sent[0].get_numpy_array()
+        tiles = [port.cwipc_from_numpy_array(arr[arr["tile"] == t], 7000, device=c.dev) for t in (1, 2)]
+
+        class One:
+            def __init__(self, pc):
+                self.pcs = [pc]
+
+            def start(self):
+                return True
+
+            def stop(self):
+                pass
+
+            def eof(self):
+                return not self.pcs
+
+            def available(self, wait=False):
+                return bool(self.pcs)
+
+            def get(self):
+                return self.pcs.pop(0) if self.pcs else None
+
+            def statistics(self):
+                pass
+
+        sync = cwipc_source_synchronizer(None, [One(tiles[0]), One(tiles[1])])
+
+        def fuse():
+            # its sources end as soon as it has taken their clouds: wait for
+            # the output, not for the end of the stream
+            sync.start()
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                if sync.available(True):
+                    return [sync.get()]
+            return []
+
+        fused, reads, uploads = host_reads(fuse)
+        sync.stop()
+        check(len(fused) == 1 and fused[0].count() == len(arr) and fused[0]._device.type == c.dev.type,
+              "synchronizer: the two tiles did not fuse on the card")
+        check(reads == 0, f"synchronizer: {reads} host reads")
+        check(bytes(fused[0].get_bytes()) == arr[np.argsort(arr["tile"] == 2, kind="stable")].tobytes(),
+              "synchronizer: the fused frame is not tile 1 then tile 2")
+        print(f"{c.card} phase 17 (d): {PROXY_FRAMES} frames through cwipc_proxy from a raw socket client,"
+              f" {proxied} points each equal to the records sent, 0 host reads and 1 upload a frame; the"
+              f" synchronizer fused 2 tiles of {len(arr)} points on the card with {reads} host reads")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"{c.card} phase 17 ok {c.lap()}")
+    return {"launches": launches, "rig_launches": rig_launches, "register_s": reg_s, "rig_s": rig_s}
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2478,16 +2935,18 @@ def main() -> int:
     from types import SimpleNamespace
 
     ctx = SimpleNamespace(dev=dev, card=card, lap=lap, t=t, buf=buf, pts=pts, sorted=(smk, sfr, srgba),
-                          down=(x, y, z, rgba, cnt), keep=keep)
+                          down=(x, y, z, rgba, cnt), keep=keep, nn_case=nn_case, compact_case=compact_case)
     s12 = sort_phase(ctx)
     s13 = scan_phase(ctx)
     s14 = ops_phase(ctx)
     k4 = {"pairs": k4_pairs, "scans": k4_scans, "ms": next(r["ms"] for r in record if r["name"] == "cols_select")}
     record += times_phase(ctx, s12, s13, s14, k4)
     s16 = codec_phase(ctx)
+    s17 = cli_phase(ctx)
     for r in record:
         r["codec_launches"] = s16["launches"].get({"segment_reduce": "segment_reduce_sorted",
                                                    "compact": "compact_kernel_cm"}.get(r["name"]), 0)
+        r["register_launches"] = s17["launches"][r["name"]]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -12,8 +12,11 @@ sort (``ops/sort_kernel.py``) and the scan-rate probe
 ``filters/``.  Clouds are read and written as PLY files, cwipcdump files
 and packets (``io/``), compressed by the CTC1 codec (``codec/``, whose
 geometry stage runs on the card through kernels 1 and 3), and carried
-between threads by the encoder/decoder and passthrough sinks and sources
-(``net/``).
+between threads and over sockets by the sinks and sources of ``net/``
+(encoder/decoder, passthrough, netserver/netclient, proxy, synchronizer).
+Clouds come from the capturer registry and file playback (``models/``),
+and the ``cwipc`` command line (``python -m cwipc_util_tpu_torch``,
+``scripts/``) registers cameras (``registration/``, coarse and fine).
 
 The device is explicit: sources and converters take ``device`` (default
 ``"cuda"``; without CUDA that raises :class:`CwipcError`), and every op
@@ -25,9 +28,12 @@ This package imports neither jax nor ``cwipc_util_tpu``.
 
 from .abstract import (
     cwipc_activesource_abstract,
+    cwipc_activesource_wrapper,
     cwipc_pointcloud_abstract,
     cwipc_sink_abstract,
+    cwipc_sink_wrapper,
     cwipc_source_abstract,
+    cwipc_source_wrapper,
 )
 from .core.buffers import (
     POINT_DTYPE,
@@ -174,6 +180,29 @@ def cwipc_write_debugdump(filename: str, pointcloud: cwipc_pointcloud_wrapper) -
     return write_debugdump(filename, pointcloud)
 
 
+def cwipc_capturer(conffile=None, device=None):
+    """Create a capturer through the plugin registry ("auto" probes types),
+    delivering clouds on ``device`` (``None`` means CUDA)."""
+    from .models.capturer import cwipc_capturer as _factory
+
+    return _factory(conffile, device)
+
+
+def cwipc_proxy(host: str, port: int, device=None):
+    """Create a source that receives pointcloud packets over TCP, its
+    clouds on ``device`` (``None`` means CUDA)."""
+    from .net.proxy import cwipc_proxy_source
+
+    return cwipc_proxy_source(host, port, device=device)
+
+
+def cwipc_check_module(name: str) -> bool:
+    """Probe availability of an optional capturer/codec module."""
+    from .models.capturer import check_module
+
+    return check_module(name)
+
+
 __all__ = [
     "CWIPC_API_VERSION",
     "CWIPC_CWIPCDUMP_HEADER",
@@ -195,6 +224,9 @@ __all__ = [
     "buffer_to_bytes",
     "buffer_to_numpy",
     "cwipc_activesource_abstract",
+    "cwipc_activesource_wrapper",
+    "cwipc_capturer",
+    "cwipc_check_module",
     "cwipc_colormap",
     "cwipc_crop",
     "cwipc_dangling_allocations",
@@ -215,11 +247,14 @@ __all__ = [
     "cwipc_point_numpy_dtype",
     "cwipc_pointcloud_abstract",
     "cwipc_pointcloud_wrapper",
+    "cwipc_proxy",
     "cwipc_read",
     "cwipc_read_debugdump",
     "cwipc_remove_outliers",
     "cwipc_sink_abstract",
+    "cwipc_sink_wrapper",
     "cwipc_source_abstract",
+    "cwipc_source_wrapper",
     "cwipc_source_synthetic",
     "cwipc_synthetic",
     "cwipc_tilefilter",

@@ -87,7 +87,14 @@ def _nn_query(src_xyz, prep, cell, radius, cell_cap: int, block: int):
         lo = torch.searchsorted(srkey, nb_key, side="left").to(torch.int32)
         hi = torch.searchsorted(srkey, nb_key, side="right").to(torch.int32)
         hi = torch.where(in_grid, hi, lo)
-        cand = lo[:, :, None] + slots[None, None, :]
+        bslots = slots
+        if dev.type == "cpu":
+            # on the host the read is free: scan only as many slots as the
+            # block's fullest cell holds.  The slots past it are all masked,
+            # so the valid candidates keep their order and the result is
+            # the same, bit for bit.
+            bslots = slots[:max(1, min(cell_cap, int((hi - lo).max())))]
+        cand = lo[:, :, None] + bslots[None, None, :]
         cand_ok = (cand < hi[:, :, None]).reshape(len(bxyz), -1)
         cand = torch.clamp(cand, 0, rcap - 1).reshape(len(bxyz), -1).long()
         diff = srxyz[cand] - bxyz[:, None, :]

@@ -17,11 +17,11 @@ multicamera.py:244-252), and the strategy variants:
 * MultiCameraIterative      — the default: seed with the best camera, then
   repeatedly align the not-yet-registered tile with the best overlap
   against the growing registered set, accepting steps only when the
-  correspondence improves (multicamera.py:462-741).
+  correspondence improves (multicamera.py:462-741),
+* MultiCameraIterativeInteractive — the same, with each step offered to
+  the user on stdin (no viewer).
 
-``MultiCameraIterativeInteractive`` (each step offered to the user) is not
-ported yet; it waits for the CLI and the viewer.  Nor is the JAX module's
-CWIPC_BATCHED_ANALYSIS switch: the analysis sweeps take the per-pair
+The JAX module's CWIPC_BATCHED_ANALYSIS switch is not ported: the analysis sweeps take the per-pair
 two-scale searches of ``analyze.nn_distances_batch`` when the clouds are on
 CUDA (the JAX module's accelerator choice) and the sequential analyzers
 otherwise.
@@ -394,12 +394,31 @@ class MultiCameraIterative(BaseMulticamAlignmentAlgorithm):
         return True
 
 
+class MultiCameraIterativeInteractive(MultiCameraIterative):
+    """Iterative alignment where the user accepts or rejects each step."""
+
+    interactive = True
+
+    def _confirm_step(self, cam_index: int, before: float, after: float) -> bool:
+        print(
+            f"camera {cam_index}: correspondence {before:.4f} -> {after:.4f}."
+            " Accept this step? [Y/n] ",
+            end="",
+            flush=True,
+        )
+        import sys
+
+        answer = sys.stdin.readline().strip().lower()
+        return answer in ("", "y", "yes")
+
+
 DEFAULT_MULTICAMERA_ALGORITHM = MultiCameraIterative
 
 ALL_MULTICAMERA_ALGORITHMS = [
     MultiCameraOneToAllOthers,
     MultiCameraToFloor,
     MultiCameraIterative,
+    MultiCameraIterativeInteractive,
     MultiCameraToGroundTruth,
 ]
 
@@ -409,4 +428,5 @@ Multicamera alignment algorithms:
     MultiCameraToFloor               align floor points to Y=0
     MultiCameraToGroundTruth         align every camera to a given cloud
     MultiCameraIterative             grow a registered set (default)
+    MultiCameraIterativeInteractive  iterative with user confirmation
 """

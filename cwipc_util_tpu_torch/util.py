@@ -14,6 +14,11 @@ for the codec's native host stages.
   renamed into place, so two processes building at once never load a
   half-written file.
 * A missing ``make`` or a failed build raises :class:`CwipcError`.
+
+It also holds the ctypes structs of a tile's info that
+``get_tileinfo_raw`` builds (``cwipc_vector``, ``cwipc_tileinfo``;
+reference: python/cwipc/util.py:296-355), copied from the JAX package's
+``util.py``.
 """
 
 from __future__ import annotations
@@ -70,3 +75,33 @@ def cwipc_util_dll_load(libname: Optional[str] = None) -> ctypes.CDLL:
         if _dll is None:
             _dll = ctypes.CDLL(str(build_native()))
     return _dll
+
+
+class cwipc_vector(ctypes.Structure):
+    """A vector (reference util.py:296-318 / api.h cwipc_vector)."""
+
+    _fields_ = [
+        ("x", ctypes.c_double),
+        ("y", ctypes.c_double),
+        ("z", ctypes.c_double),
+    ]
+
+    def __eq__(self, other) -> bool:
+        if not isinstance(other, cwipc_vector):
+            return False
+        return all(getattr(self, f) == getattr(other, f) for f in ("x", "y", "z"))
+
+    def __ne__(self, other) -> bool:
+        return not self.__eq__(other)
+
+
+class cwipc_tileinfo(ctypes.Structure):
+    """Direction/camera info of a pointcloud tile (api.h:150-155)."""
+
+    _fields_ = [
+        ("normal", cwipc_vector),
+        ("cameraName", ctypes.c_char_p),
+        ("ncamera", ctypes.c_uint8),
+        ("cameraMask", ctypes.c_uint8),
+    ]
+

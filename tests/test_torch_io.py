@@ -227,7 +227,17 @@ class Block(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Block())
 import cwipc_util_tpu_torch as port
+SHIMS = {"cwipc_util_tpu_torch." + n for n in ("kinect", "orbbec", "realsense2")}
 for info in pkgutil.walk_packages(port.__path__, "cwipc_util_tpu_torch."):
+    if info.name in SHIMS:
+        # a camera shim refuses to import without its plugin, as in the JAX package
+        try:
+            importlib.import_module(info.name)
+        except ImportError as e:
+            assert "plugin not installed" in str(e), e
+        else:
+            raise AssertionError(f"{info.name} imported without its plugin")
+        continue
     importlib.import_module(info.name)
 from cwipc_util_tpu_torch import codec
 import numpy as np
