@@ -144,6 +144,35 @@ phases that each stop the run at the first failure:
    sent, 0 host reads and 1 upload a frame; the synchronizer fusing two
    tiles on the card with 0 host reads.
 
+18. the registration tools and the streaming commands (``tools_phase``),
+   on the default device, from a temporary directory: (a) ``find_transform
+   --sourcetile 1 --targettile 2`` on phase 17's 3-camera 30k scene file
+   and ``--correspondence 0.01`` from the asymmetric polyhedron of
+   tests/test_torch_gicp_flow.py to a copy moved by 3 mm / 0.02 rad, in
+   process (kernels 5 and 3 launched,
+   every call held to its plain version as in phase 17; every analysis NN
+   query held to a float64 cKDTree where it took kernel 5's grid, and to
+   the same two-scale search on CPU copies where it did not, within 1e-6
+   m; the correspondence after below the one before; on the polyhedron the
+   transform within 1e-4 m and 1e-4 rad of the move and of the same
+   command's run with ``--device cpu``, whose ICP takes the two-scale
+   search, exact at that radius); (b)
+   ``analyze_registration`` on that file, default and ``--pairwise``
+   (kernel 5 launched and held, every NN query held as in (a), the CPU
+   run's correspondences printed beside the card's);
+   (c) ``test_aligner`` (kernels 5 and 3 launched and held, every camera
+   improved); (d) ``grab --synthetic --count 3 --compress`` as a
+   subprocess (kernel 1 launched, counted in the subprocess) and in process
+   with ``--compress_param tilenumber=1`` (kernels 1 and 3 launched and
+   held bit-equal), each file decoded on the card to a solo decode's
+   count; (e) ``netserver --oneshot`` and ``forward --forward --synthetic
+   --count 8 --tile 1 --nodrop`` as subprocesses (kernels 1 and 3
+   launched in the forward), at least 5 frames received here by
+   ``cwipc_source_netclient`` and decoded on the card with a solo decode's
+   count; (f) ``join`` of two files and ``timing`` of a 3-frame recording,
+   equal to the ``--device cpu`` runs.  Each step prints its wall seconds
+   and launches.
+
 Each phase line ends with the wall seconds the phase took.  The kernels
 line gives, per kernel, its time, its plain version's, its bound (the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate:
@@ -155,7 +184,8 @@ the same function, that call's time.  ``launches`` is the count of the
 main path's run; kernels 6 and 7 are on no path (as in the JAX package),
 and theirs is the count of phase 12's sort -> kernel 1 run and phase 13's
 probe run.  ``codec_launches`` is the count of phase 16's codec run,
-``register_launches`` that of phase 17 (a)'s in-process register run.
+``register_launches`` that of phase 17 (a)'s in-process register run,
+``tools_launches`` those of each step of phase 18.
 
 Run alone, outside a checkout, or without CUDA, it exits 2 and prints no
 result.
@@ -1528,14 +1558,39 @@ def kernel_wrappers():
             for name, (mod, fn) in KERNEL_WRAPPERS.items()}
 
 
-def cli(cwd, *args, timeout=600):
-    """One command of the port, as a user types it, from cwd."""
+_COUNTED = r"""
+import importlib, json, runpy, sys
+
+wrappers = json.loads(sys.argv[1])
+sys.argv = ["cwipc_util_tpu_torch"] + sys.argv[2:]
+try:
+    runpy.run_module("cwipc_util_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    counts = {name: getattr(importlib.import_module(f"cwipc_util_tpu_torch.ops.{mod}"), fn).launches
+              for name, (mod, fn) in wrappers.items()}
+    print("launches " + json.dumps(counts), file=sys.stderr, flush=True)
+"""
+
+
+def cli_start(cwd, *args):
+    """One command of the port, as ``python -m cwipc_util_tpu_torch`` runs
+    it, from cwd, in a subprocess that prints its kernels' launch counts
+    on a last line of stderr when the command ends."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
-    rv = subprocess.run([sys.executable, "-m", "cwipc_util_tpu_torch", *args], cwd=cwd, env=env,
-                        capture_output=True, text=True, timeout=timeout)
-    check(rv.returncode == 0, f"cwipc {' '.join(args)}: exit {rv.returncode}: {rv.stderr[-1500:]}")
-    return rv.stdout
+    return subprocess.Popen([sys.executable, "-c", _COUNTED, json.dumps(KERNEL_WRAPPERS), *args], cwd=cwd,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_finish(proc, what, timeout=300):
+    """(stdout, launches by kernel record name) of a finished command."""
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    check(proc.returncode == 0, f"cwipc {what}: exit {proc.returncode}: {stderr[-1500:]}")
+    line = next(ln for ln in reversed(stderr.splitlines()) if ln.startswith("launches "))
+    return stdout, json.loads(line[len("launches "):])
 
 
 def overall(stdout):
@@ -1545,76 +1600,138 @@ def overall(stdout):
     return [float(v) for v in re.findall(r"overall correspondence (\d+\.\d+)", stdout)]
 
 
-def register_in_process(c, cwd, *args):
-    """The register script's main() in this process, from cwd, with every
-    kernel's count set to 0 just before and read just after: (stdout,
-    wall seconds, launches by kernel record name, the aligner runs' search:
-    how many took the column grid (kernel 5) and how many the two-scale
-    search, where no grid fits).  The inputs of every kernel 5 and kernel 3
-    call of the run are recorded as it runs, and after it each call is
-    held to its plain version as phase 9 holds the flow's: kernel 5's d2
-    bit-equal and ids equal, kernel 3 bit-equal."""
+def script_in_process(c, command, cwd, *args, phase="17"):
+    """A command's script ``main()`` in this process, from cwd, with every
+    kernel's count set to 0 just before and read just after.  Returns a
+    namespace: ``stdout``, ``wall`` seconds, ``launches`` by kernel record
+    name, ``searches`` (how many aligner runs took the column grid, kernel
+    5, and how many the two-scale search, where no grid fits),
+    ``results``: every analyzer result (its correspondence statistics) and
+    every pairwise aligner transform of the run, in call order, and
+    ``distances``: every analysis NN query on the card with its inputs
+    (copies on the card), result and route (``hold_distances`` checks
+    them).  The inputs
+    of every kernel 5, kernel 3 and kernel 1 call of the run are recorded as
+    it runs, and after it each call is held to its plain version as phase 9
+    holds the flow's: kernel 5's d2 bit-equal and ids equal, kernels 3 and
+    1 bit-equal."""
     import contextlib
+    import importlib
     import io
+    from types import SimpleNamespace
 
+    import numpy as np
     import torch
 
-    from cwipc_util_tpu_torch.ops import compaction, knn
-    from cwipc_util_tpu_torch.registration import fine
-    from cwipc_util_tpu_torch.scripts import cwipc_register
+    from cwipc_util_tpu_torch.ops import compaction, knn, voxelize
+    from cwipc_util_tpu_torch.ops.segment_reduce import segment_reduce_sorted_plain
+    from cwipc_util_tpu_torch.registration import analyze, fine
 
+    script = importlib.import_module(f"cwipc_util_tpu_torch.scripts.cwipc_{command}")
     wrappers = kernel_wrappers()
     out, argv, here = io.StringIO(), sys.argv, os.getcwd()
-    real_params, searches = fine.nn_grid_params, {"grid": 0, "two-scale": 0}
-    real_select, real_compact = knn.nn_select, compaction.compact_kernel_cm
-    grids, compactions = [], []
+    searches, results = {"grid": 0, "two-scale": 0}, []
+    real = {"params": fine.nn_grid_params, "select": knn.nn_select, "compact": compaction.compact_kernel_cm,
+            "reduce": voxelize.segment_reduce_sorted, "results": analyze.RegistrationAnalyzer.get_results,
+            "transform": fine.RegistrationComputer.get_result_transformation,
+            "knn_params": knn.nn_grid_params, "distances": analyze._nn_distances}
+    grids, compactions, reductions, distances, route = [], [], [], [], [None]
 
     def recording_params(*a, **kw):
-        g = real_params(*a, **kw)
+        g = real["params"](*a, **kw)
         searches["two-scale" if g is None else "grid"] += 1
         return g
 
+    # the calls that launch a kernel: those on CUDA tensors
     def recording_select(*planes, **kw):
-        grids.append((planes, kw))
-        return real_select(*planes, **kw)
+        if planes[0].is_cuda:
+            grids.append((planes, kw))
+        return real["select"](*planes, **kw)
 
     def recording_compact(*a):
-        compactions.append(a)
-        return real_compact(*a)
+        if a[0].is_cuda:
+            compactions.append(a)
+        return real["compact"](*a)
+
+    def recording_reduce(*a):
+        got = real["reduce"](*a)
+        if a[0].is_cuda:
+            reductions.append((a, got))
+        return got
+
+    def recording_knn_params(*a, **kw):
+        g = real["knn_params"](*a, **kw)
+        route[0] = "two-scale" if g is None else "grid"
+        return g
+
+    # copies on the card, read after the run: a host copy here would be a
+    # device read inside the timed window, where the run itself makes none
+    def recording_distances(src, ref, max_distance, ignore_nearest=0):
+        route[0] = "two-scale"
+        d = real["distances"](src, ref, max_distance, ignore_nearest)
+        if src._device.type == "cuda" and not ignore_nearest:
+            distances.append((src._access_buffer().xyz[: src.count()].clone(),
+                              ref._access_buffer().xyz[: ref.count()].clone(), float(max_distance), d, route[0]))
+        return d
+
+    def recording_results(self):
+        r = real["results"](self)
+        results.append(("analysis", [r.minCorrespondence, r.minCorrespondenceCount, r.mean, r.stddev, r.tmean,
+                                     r.mode, r.median]))
+        return r
+
+    def recording_transform(self):
+        m = real["transform"](self)
+        results.append(("transform", np.asarray(m, np.float64)))
+        return m
+
+    def patch(params, select, compact, reduce, get_results, transform, knn_params, nn_distances):
+        fine.nn_grid_params, knn.nn_select, compaction.compact_kernel_cm = params, select, compact
+        voxelize.segment_reduce_sorted = reduce
+        analyze.RegistrationAnalyzer.get_results = get_results
+        fine.RegistrationComputer.get_result_transformation = transform
+        knn.nn_grid_params, analyze._nn_distances = knn_params, nn_distances
 
     os.chdir(cwd)
-    sys.argv = ["cwipc register", *args]
-    fine.nn_grid_params = recording_params
-    knn.nn_select, compaction.compact_kernel_cm = recording_select, recording_compact
+    sys.argv = [f"cwipc {command}", *args]
+    patch(recording_params, recording_select, recording_compact, recording_reduce, recording_results,
+          recording_transform, recording_knn_params, recording_distances)
     torch.cuda.synchronize()
     for f in wrappers.values():
         f.launches = 0
     t_0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
-            rc = cwipc_register.main()
+            rc = script.main()
         torch.cuda.synchronize()
     finally:
-        fine.nn_grid_params = real_params
-        knn.nn_select, compaction.compact_kernel_cm = real_select, real_compact
+        patch(*real.values())
         sys.argv = argv
         os.chdir(here)
     wall = time.perf_counter() - t_0
     launches = {name: f.launches for name, f in wrappers.items()}
-    check(rc == 0, f"register {' '.join(args)} (in process): exit {rc}")
-    check(len(grids) == launches["nn_select"] and len(compactions) == launches["compact"],
-          f"register {' '.join(args)}: {len(grids)} kernel 5 and {len(compactions)} kernel 3 calls recorded,"
-          f" launches {launches}")
+    what = f"{command} {' '.join(args)}"
+    check(rc == 0, f"{what} (in process): exit {rc}: {out.getvalue()[-1500:]}")
+    check(len(grids) == launches["nn_select"] and len(compactions) == launches["compact"]
+          and len(reductions) == launches["segment_reduce"],
+          f"{what}: {len(grids)} kernel 5, {len(compactions)} kernel 3 and {len(reductions)} kernel 1 calls"
+          f" recorded, launches {launches}")
     for planes, kw in grids:
-        c.nn_case(planes[:3], planes[3:], kw["gy"], kw["gz"], kw["cap_r"], kw["cap_q"], f"register grid {kw}")
+        c.nn_case(planes[:3], planes[3:], kw["gy"], kw["gz"], kw["cap_r"], kw["cap_q"], f"{command} grid {kw}")
     for a in compactions:
         c.compact_case(*a)
-    print(f"{c.card} phase 17: register {' '.join(args)}: kernel 5 equal to its plain version on all {len(grids)}"
-          f" reference/query grid pairs of the run, at (gy, gz, cap_r, cap_q)"
-          f" {sorted({(kw['gy'], kw['gz'], kw['cap_r'], kw['cap_q']) for _, kw in grids})}; kernel 3 bit-equal to"
-          f" its plain version on all {len(compactions)} compactions, at capacities"
-          f" {sorted({int(a[0].shape[0]) for a in compactions})}")
-    return out.getvalue(), wall, launches, searches
+    for a, got in reductions:
+        want = segment_reduce_sorted_plain(*a)
+        check(all(same_bits(g, w) for g, w in zip(got, want)), f"{what}: kernel 1 differs from its plain version")
+    if launches["nn_select"] or launches["compact"] or launches["segment_reduce"]:
+        print(f"{c.card} phase {phase}: {what}: kernel 5 equal to its plain version on all {len(grids)}"
+              f" reference/query grid pairs of the run, at (gy, gz, cap_r, cap_q)"
+              f" {sorted({(kw['gy'], kw['gz'], kw['cap_r'], kw['cap_q']) for _, kw in grids})}; kernel 3 bit-equal"
+              f" to its plain version on all {len(compactions)} compactions, at capacities"
+              f" {sorted({int(a[0].shape[0]) for a in compactions})}"
+              + (f"; kernel 1 bit-equal on all {len(reductions)} segment reductions" if reductions else ""))
+    return SimpleNamespace(stdout=out.getvalue(), wall=wall, launches=launches, searches=searches, results=results,
+                           distances=distances)
 
 
 def stage_seconds(stdout):
@@ -1722,10 +1839,12 @@ def cli_phase(c):
         os.makedirs(os.path.join(work, "a", "again"))
         cwd = os.path.join(work, "a")
         t_0 = time.perf_counter()
-        cli(cwd, "create_analysis_test", *CLI_ARGS, "testpc.ply")
+        _, create_launches = cli_finish(cli_start(cwd, "create_analysis_test", *CLI_ARGS, "testpc.ply"),
+                                        "create_analysis_test")
         create_s = time.perf_counter() - t_0
         t_0 = time.perf_counter()
-        stdout = cli(cwd, "register", "--nograb", "testpc.ply", "--nocoarse", "--nofloor", "-v")
+        stdout, sub_launches = cli_finish(cli_start(cwd, "register", "--nograb", "testpc.ply", "--nocoarse",
+                                                    "--nofloor", "-v"), "register")
         sub_s = time.perf_counter() - t_0
         corr = overall(stdout)
         check(len(corr) >= 2 and corr[-1] < 0.006 and corr[-1] < corr[0] / 3,
@@ -1735,15 +1854,21 @@ def cli_phase(c):
         check(len(cfg["camera"]) == 3 and 0 < cfg["correspondence"] < 0.006,
               f"register (a): cameraconfig {len(cfg['camera'])} cameras, correspondence {cfg.get('correspondence')}")
         shutil.copy(os.path.join(cwd, "testpc.ply"), os.path.join(cwd, "again"))
-        stdout, reg_s, launches, searches = register_in_process(
-            c, os.path.join(cwd, "again"), "--nograb", "testpc.ply", "--nocoarse", "--nofloor", "-v")
+        with open(os.path.join(cwd, "testpc.ply"), "rb") as fp:
+            scene_ply = fp.read()
+        run = script_in_process(c, "register", os.path.join(cwd, "again"), "--nograb", "testpc.ply", "--nocoarse",
+                                "--nofloor", "-v")
+        stdout, reg_s, launches, searches = run.stdout, run.wall, run.launches, run.searches
         corr_in = overall(stdout)
         check(len(corr_in) >= 2 and corr_in[-1] < 0.006 and corr_in[-1] < corr_in[0] / 3,
               f"register (a), in process: overall correspondence {corr_in}")
         check(launches["nn_select"] >= 1 and launches["compact"] >= 1,
               f"register (a): kernels 5 and 3 must run: {launches}")
-        print(f"{c.card} phase 17 (a): create_analysis_test {CLI_ARGS} in {create_s} s and register --nograb"
-              f" --nocoarse --nofloor -v in {sub_s} s (subprocesses, each with its start); overall correspondence"
+        check(sub_launches["nn_select"] >= 1 and sub_launches["compact"] >= 1,
+              f"register (a) as a subprocess: kernels 5 and 3 must run: {sub_launches}")
+        print(f"{c.card} phase 17 (a): create_analysis_test {CLI_ARGS} in {create_s} s (launches {create_launches})"
+              f" and register --nograb --nocoarse --nofloor -v in {sub_s} s (launches {sub_launches})"
+              f" (subprocesses, each with its start); overall correspondence"
               f" {corr}; cameraconfig correspondence {cfg['correspondence']}; the register script's main() in"
               f" process: {reg_s} s wall (stages {stage_seconds(stdout)}), overall correspondence {corr_in},"
               f" launches {launches}, aligner searches {searches}")
@@ -1762,8 +1887,9 @@ def cli_phase(c):
             moved = cwipc_transform(port.cwipc_tilefilter(pc, 1 << cam), perturbation(100 + cam, 0.03, 0.06))
             counts.append(moved.count())
             port.cwipc_write(os.path.join(rig, f"camera{cam}.ply"), moved, port.CWIPC_FLAGS_BINARY)
-        stdout, rig_s, rig_launches, rig_searches = register_in_process(
-            c, os.path.dirname(os.path.abspath(__file__)), "--nocoarse", "--nofloor", "-v", rig)
+        run = script_in_process(c, "register", os.path.dirname(os.path.abspath(__file__)), "--nocoarse", "--nofloor",
+                                "-v", rig)
+        stdout, rig_s, rig_launches, rig_searches = run.stdout, run.wall, run.launches, run.searches
         corr_rig = overall(stdout)
         check(len(corr_rig) >= 2 and corr_rig[-1] < corr_rig[0] / 3, f"register (b): overall correspondence {corr_rig}")
         with open(os.path.join(rig, "cameraconfig.json")) as fp:
@@ -1923,8 +2049,332 @@ def cli_phase(c):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"{c.card} phase 17 ok {c.lap()}")
-    return {"launches": launches, "rig_launches": rig_launches, "register_s": reg_s, "rig_s": rig_s}
+    return {"launches": launches, "rig_launches": rig_launches, "register_s": reg_s, "rig_s": rig_s,
+            "scene_ply": scene_ply}
 
+
+# ---------------------------------------------------------------------------
+# phase 18, the registration tools and the streaming commands on the card:
+# find_transform, analyze_registration and test_aligner (kernels 5 and 3),
+# grab --compress and a relay (kernels 1 and 3), join and timing
+# ---------------------------------------------------------------------------
+
+GRAB_FRAMES, RELAY_FRAMES, RELAY_MIN = 3, 8, 5
+TOOL_TOL = 1e-4  # m and rad: a tool's transform on the card against its --device cpu run
+
+# the asymmetric polyhedron of tests/test_torch_gicp_flow.py at 10 cm: a box
+# with one side sloped and a wedge on one face, so no symmetry leaves a
+# pose undetermined (the synthetic body of revolution leaves the rotation
+# about its axis free: a 1e-6 m jitter of the 30k scene moves find_transform's
+# rotation between its tiles 1 and 2 by up to 2e-3 rad on the CPU)
+HULL = ((-0.25, 0, -0.175), (0.25, 0, -0.175), (0.25, 0, 0.175), (-0.25, 0, 0.175),
+        (-0.25, 1.0, -0.175), (0.1, 1.0, -0.175), (0.1, 1.0, 0.175), (-0.25, 1.0, 0.175),
+        (0.25, 0.6, -0.175), (0.25, 0.6, 0.175), (-0.1, 0.5, 0.32))
+HULL_SCALE, HULL_N, HULL_SEED = 0.1, 4000, 4
+# find_transform from the polyhedron to a copy moved by perturbation(POLY_SEED,
+# 3 mm, 0.02 rad), at a radius where the CPU's two-scale search is exact too
+POLY_SEED, POLY_CORR = 7, 0.01
+
+
+def polyhedron_scene():
+    """The polyhedron's 3-camera scene as in tests/test_torch_gicp_flow.py
+    (points uniform on the faces, simulatecams 3 hard seed 42, 2 mm noise
+    seed 43, each camera moved by perturbation(42 + cam, 0.01, 0.06)), as a
+    host-backed CPU cloud."""
+    import numpy as np
+    from scipy.spatial import ConvexHull
+
+    import cwipc_util_tpu_torch as port
+    from cwipc_util_tpu_torch.filters.noise import NoiseFilter
+    from cwipc_util_tpu_torch.filters.simulatecams import SimulatecamsFilter
+    from cwipc_util_tpu_torch.registration.util import cwipc_transform
+
+    hull = np.asarray(HULL)
+    tri = hull[ConvexHull(hull).simplices] * HULL_SCALE
+    area = 0.5 * np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=1)
+    rng = np.random.default_rng(HULL_SEED)
+    face = rng.choice(len(tri), HULL_N, p=area / area.sum())
+    u, v = rng.random(HULL_N), rng.random(HULL_N)
+    out = u + v > 1
+    u[out], v[out] = 1 - u[out], 1 - v[out]
+    t = tri[face]
+    m = np.zeros((HULL_N, 7), np.float32)
+    m[:, :3] = t[:, 0] + u[:, None] * (t[:, 1] - t[:, 0]) + v[:, None] * (t[:, 2] - t[:, 0])
+    m[:, 3:6] = rng.integers(0, 256, (HULL_N, 3))
+    m[:, 6] = 1
+    pc = port.cwipc_from_numpy_matrix(m, 0, device="cpu")
+    pc = NoiseFilter(0.002, seed=43).filter(SimulatecamsFilter(3, hard=True, seed=42).filter(pc))
+    return port.cwipc_join_multi([cwipc_transform(port.cwipc_tilefilter(pc, 1 << cam),
+                                                  perturbation(42 + cam, 0.01, 0.06)) for cam in range(3)])
+
+
+def listening(port_no, proc, timeout=60.0):
+    """Wait until a socket listens on port_no, where proc serves (the
+    kernel's table of sockets: a test connection would count as a client)."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            check(False, f"the server of port {port_no} ended: {proc.communicate()[1][-1500:]}")
+        for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+            with open(table) as fp:
+                rows = [row.split() for row in fp.read().splitlines()[1:]]
+            if any(row[1].endswith(f":{port_no:04X}") and row[3] == "0A" for row in rows):
+                return
+        time.sleep(0.05)
+    check(False, f"nothing listens on port {port_no} after {timeout} s")
+
+
+def pose_distance(a, b):
+    """(translation distance, rotation angle) between two poses; the angle
+    from |Ra Rb^-1 - I|, exact at small angles."""
+    import numpy as np
+
+    dev = np.linalg.norm(a[:3, :3] @ np.linalg.inv(b[:3, :3]) - np.identity(3)) / (2 * np.sqrt(2))
+    return float(np.linalg.norm(a[:3, 3] - b[:3, 3])), float(2 * np.arcsin(min(dev, 1.0)))
+
+
+def hold_distances(calls, what):
+    """Each analysis NN query of a run on the card against a reference on
+    the host: the column grid's (kernel 5 with its fixup, exact by design)
+    against a float64 cKDTree, the two-scale search's (whose cell cap makes
+    it approximate where cells overflow, as in the JAX package) against
+    the same search on CPU copies of its inputs.  Distances within 1e-6 m,
+    the same points in range (apart from those within 1e-6 m of the
+    radius).  Returns the largest difference by route."""
+    import numpy as np
+    import torch
+    from scipy.spatial import cKDTree
+
+    from cwipc_util_tpu_torch.ops.knn import nn_search
+
+    worst = {"grid": 0.0, "two-scale": 0.0}
+    for src, ref, maxd, d, route in calls:
+        src, ref = src.cpu().numpy(), ref.cpu().numpy()
+        if route == "grid":
+            want, _ = cKDTree(ref.astype(np.float64)).query(src.astype(np.float64), k=1, workers=-1)
+            want = np.where(want <= maxd, want, np.inf)
+        else:
+            want, _ = nn_search(torch.from_numpy(src.copy()), len(src), torch.from_numpy(ref.copy()), len(ref), maxd)
+            want = want.numpy()
+        edge = np.abs(np.where(np.isfinite(want), want, maxd) - maxd) <= 1e-6
+        same = np.isfinite(d) == np.isfinite(want)
+        both = np.isfinite(d) & np.isfinite(want)
+        err = float(np.max(np.abs(d[both] - want[both]), initial=0.0))
+        check(len(d) == len(src) and bool(same[~edge].all()) and err <= 1e-6,
+              f"{what}: an analysis NN query ({route}, {len(src)} -> {len(ref)} points, radius {maxd}) differs from"
+              f" its reference: {int((~same[~edge]).sum())} points in or out of range, max difference {err}")
+        worst[route] = max(worst[route], err)
+    return worst
+
+
+def tools_phase(c, scene_ply):
+    """Phase 18: the registration tools and the streaming commands, on the
+    default device (CUDA).  ``scene_ply`` holds the bytes of phase 17's
+    3-camera 30k file."""
+    import csv
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import cwipc_util_tpu_torch as port
+    from cwipc_util_tpu_torch import codec
+    from cwipc_util_tpu_torch.net import source_decoder, source_netclient
+    from cwipc_util_tpu_torch.registration.util import cwipc_transform
+
+    work = tempfile.mkdtemp(prefix="cwipc-tools-")
+    steps = {}
+    try:
+        with open(os.path.join(work, "testpc.ply"), "wb") as fp:
+            fp.write(scene_ply)
+
+        # (a)-(c): the registration tools in process on the card, every
+        # analysis NN query held to its reference; the polyhedron's
+        # find_transform also with --device cpu, its transform held to the
+        # card's (the CPU takes the two-scale search where the card takes
+        # kernel 5's grid, and only there, at a radius where both are exact,
+        # do the two runs compute the same thing)
+        def tool(command, *args, cpu=False):
+            card = script_in_process(c, command, work, *args, phase="18")
+            held = hold_distances(card.distances, f"{command} {' '.join(args)}")
+            steps[" ".join((command,) + args[:-1])] = {"wall_s": card.wall, "launches": card.launches}
+            if not cpu:
+                return card, None, held
+            on_cpu = script_in_process(c, command, work, *args, "--device", "cpu", phase="18")
+            check(not any(on_cpu.launches.values()), f"{command} --device cpu launched kernels: {on_cpu.launches}")
+            steps[" ".join((command,) + args[:-1])]["cpu_wall_s"] = on_cpu.wall
+            return card, on_cpu, held
+
+        poly = polyhedron_scene()
+        moved = perturbation(POLY_SEED, 0.003, 0.02)
+        port.cwipc_write(os.path.join(work, "polyhedron.ply"), poly, port.CWIPC_FLAGS_BINARY)
+        port.cwipc_write(os.path.join(work, "moved.ply"), cwipc_transform(poly, moved), port.CWIPC_FLAGS_BINARY)
+        for argv in (("--sourcetile", "1", "--targettile", "2", "testpc.ply"),
+                     ("--correspondence", str(POLY_CORR), "polyhedron.ply", "moved.ply")):
+            on_poly = argv[-1] == "moved.ply"
+            card, cpu, held = tool("find_transform", *argv, cpu=on_poly)
+            check(card.launches["nn_select"] >= 1 and (card.launches["compact"] >= 1 or on_poly),
+                  f"find_transform {argv}: kernel 5, and kernel 3 for the tile cuts, must run: {card.launches}")
+            corr = [v[0] for k, v in card.results if k == "analysis"]
+            check(len(corr) == 2 and corr[1] < corr[0],
+                  f"find_transform {argv}: correspondence before and after {corr}")
+            got = [m for k, m in card.results if k == "transform"]
+            check(len(got) == 1, f"find_transform {argv}: {len(got)} transforms")
+            held_to = ""
+            if on_poly:
+                want = [m for k, m in cpu.results if k == "transform"]
+                check(len(want) == 1, f"find_transform {argv}: {len(want)} transforms with --device cpu")
+                dist, truth = pose_distance(got[0], want[0]), pose_distance(got[0], moved)
+                check(max(dist) <= TOOL_TOL and max(truth) <= TOOL_TOL, f"find_transform {argv}: the card's transform"
+                      f" is {dist} (m, rad) from the CPU's and {truth} from the move")
+                held_to = (f" ({cpu.wall} s with --device cpu); transform {dist} (m, rad) from the CPU run's, {truth}"
+                           f" from the move")
+            print(f"{c.card} phase 18 (a): find_transform {' '.join(argv)}: {card.wall} s on the card{held_to};"
+                  f" launches {card.launches}, aligner searches {card.searches}; {len(card.distances)} analysis NN"
+                  f" queries held (max difference by route {held}); correspondence {corr[0]} -> {corr[1]}")
+
+        for mode in ((), ("--pairwise",)):
+            card, _, held = tool("analyze_registration", *mode, "testpc.ply")
+            check(card.launches["nn_select"] >= 1, f"analyze_registration {mode}: kernel 5 must run: {card.launches}")
+            got = [v[0] for k, v in card.results if k == "analysis"]
+            check(len(got) == (6 if mode else 3) and len(card.distances) > 0,
+                  f"analyze_registration {mode}: correspondences {got}, {len(card.distances)} NN queries")
+            print(f"{c.card} phase 18 (b): analyze_registration {' '.join(mode)}: {card.wall} s on the card,"
+                  f" launches {card.launches}; {len(card.distances)} NN queries held (max difference by route"
+                  f" {held}); per-tile correspondences {got}")
+
+        run = script_in_process(c, "test_aligner", work, "--output", "aligned.ply", "testpc.ply", phase="18")
+        steps["test_aligner"] = {"wall_s": run.wall, "launches": run.launches}
+        check(run.launches["nn_select"] >= 1 and run.launches["compact"] >= 1,
+              f"test_aligner: kernels 5 and 3 must run: {run.launches}")
+        held = hold_distances(run.distances, "test_aligner")
+        report = [(float(a), float(b)) for a, b in
+                  re.findall(r"correspondence (\d+\.\d+) -> (\d+\.\d+)", run.stdout)]
+        check(len(report) == 3 and all(b < a for a, b in report), f"test_aligner: {report}")
+        aligned = port.cwipc_read(os.path.join(work, "aligned.ply"), 0, device=c.dev)
+        check(aligned.count() == port.cwipc_read(os.path.join(work, "testpc.ply"), 0, device=c.dev).count(),
+              "test_aligner: the aligned cloud lost points")
+        print(f"{c.card} phase 18 (c): test_aligner (MultiCameraIterative) on the 30k scene: {run.wall} s, launches"
+              f" {run.launches}, aligner searches {run.searches}; {len(run.distances)} analysis NN queries held (max"
+              f" difference by route {held}); per camera {report}")
+
+        # (d) grab --compress: a subprocess as typed, then in process with a tile mask
+        gen = port.cwipc_synthetic(device=c.dev)
+        gen.start()
+        frame = gen.get()
+        gen.stop()
+
+        def decoded(pc, **params):
+            enc = codec.cwipc_new_encoder(**params)
+            enc.feed(pc)
+            dec = codec.cwipc_new_decoder(device=c.dev)
+            dec.feed(enc.get_bytes())
+            return dec.get().count()
+
+        want_all, want_t1 = decoded(frame), decoded(frame, tilenumber=1)
+
+        def grabbed(d, want):
+            names = sorted(os.listdir(d))
+            check(len(names) == GRAB_FRAMES and all(n.endswith(".cwicpc") for n in names), f"grab: files {names}")
+            counts = []
+            for name in names:
+                dec = codec.cwipc_new_decoder(device=c.dev)
+                with open(os.path.join(d, name), "rb") as fp:
+                    dec.feed(fp.read())
+                pc = dec.get()
+                check(pc._device.type == c.dev.type, f"grab: {name} not decoded for the card")
+                counts.append(pc.count())
+            check(counts == [want] * GRAB_FRAMES, f"grab: decoded counts {counts}, expected {want} each")
+            return counts
+
+        for d in ("grab", "grab_t1"):
+            os.makedirs(os.path.join(work, d))
+        t_0 = time.perf_counter()
+        _, grab_launches = cli_finish(cli_start(work, "grab", "--synthetic", "--count", str(GRAB_FRAMES),
+                                                "--compress", "grab"), "grab --compress")
+        grab_s = time.perf_counter() - t_0
+        check(grab_launches["segment_reduce"] >= GRAB_FRAMES, f"grab --compress: kernel 1 must run: {grab_launches}")
+        counts = grabbed(os.path.join(work, "grab"), want_all)
+        run = script_in_process(c, "grab", work, "--synthetic", "--count", str(GRAB_FRAMES), "--compress",
+                                "--compress_param", "tilenumber=1", "grab_t1", phase="18")
+        check(run.launches["segment_reduce"] >= GRAB_FRAMES and run.launches["compact"] >= GRAB_FRAMES,
+              f"grab --compress --compress_param tilenumber=1: kernels 1 and 3 must run: {run.launches}")
+        counts_t1 = grabbed(os.path.join(work, "grab_t1"), want_t1)
+        steps["grab --compress"] = {"wall_s": grab_s, "launches": grab_launches}
+        steps["grab --compress tilenumber=1"] = {"wall_s": run.wall, "launches": run.launches}
+        print(f"{c.card} phase 18 (d): grab --synthetic --count {GRAB_FRAMES} --compress: {grab_s} s as a subprocess"
+              f" (with its start), launches {grab_launches}, files decoded on the card to {counts} points; in"
+              f" process with --compress_param tilenumber=1: {run.wall} s, launches {run.launches}, {counts_t1}"
+              f" points")
+
+        # (e) a relay: netserver --oneshot <- forward --forward (tile 1, compressed) -> netclient + decoder here
+        ingest, serve = free_port(), free_port()
+        relay = cli_start(work, "netserver", "--oneshot", "--port", str(ingest), "--serveport", str(serve))
+        procs = [relay]
+        try:
+            listening(serve, relay)
+            listening(ingest, relay)
+            dsrc = source_decoder.cwipc_activesource_decoder(
+                source_netclient.cwipc_source_netclient(f"127.0.0.1:{serve}"), device=c.dev)
+            dsrc.start()
+            t_0 = time.perf_counter()
+            # --nodrop: the encoder sink waits for its thread instead of dropping frames
+            procs.append(cli_start(work, "forward", "--forward", f"localhost:{ingest}", "--synthetic", "--count",
+                                   str(RELAY_FRAMES), "--tile", "1", "--nodrop"))
+            try:
+                got = drain(dsrc, RELAY_FRAMES, timeout=120)
+            finally:
+                dsrc.stop()
+            _, forward_launches = cli_finish(procs[1], "forward --forward")
+            relay_s = time.perf_counter() - t_0
+            cli_finish(relay, "netserver --oneshot")
+        finally:
+            for p in procs:
+                p.kill()
+        relayed = [pc.count() for pc in got]
+        check(len(relayed) >= RELAY_MIN and set(relayed) == {want_t1}
+              and all(pc._device.type == c.dev.type for pc in got),
+              f"relay: {relayed} decoded, expected at least {RELAY_MIN} of {want_t1} points on the card")
+        check(forward_launches["segment_reduce"] >= RELAY_FRAMES and forward_launches["compact"] >= RELAY_FRAMES,
+              f"forward --tile 1: kernels 1 and 3 must run: {forward_launches}")
+        steps["forward --forward --tile 1"] = {"wall_s": relay_s, "launches": forward_launches}
+        print(f"{c.card} phase 18 (e): netserver --oneshot <- forward --forward --synthetic --count {RELAY_FRAMES}"
+              f" --tile 1 --nodrop (subprocesses) -> cwipc_source_netclient -> decoder here: {len(relayed)} frames of"
+              f" {relayed} points decoded on the card in {relay_s} s (the forward's start included); forward"
+              f" launches {forward_launches}")
+
+        # (f) join and timing on a 3-frame recording, on the card and on the CPU
+        rec = os.path.join(work, "rec")
+        os.makedirs(rec)
+        gen = port.cwipc_synthetic(0, 40000, device=c.dev)
+        gen.start()
+        for i in range(3):
+            port.cwipc_write(os.path.join(rec, f"pointcloud-{i:04d}.ply"), gen.get(), port.CWIPC_FLAGS_BINARY)
+        gen.stop()
+        files = [os.path.join("rec", f"pointcloud-{i:04d}.ply") for i in range(2)]
+        rows = {}
+        for label, dev in (("card", ()), ("cpu", ("--device", "cpu"))):
+            run = script_in_process(c, "join", work, f"joined-{label}.ply", *files, *dev, phase="18")
+            steps[f"join ({label})"] = {"wall_s": run.wall, "launches": run.launches}
+            run = script_in_process(c, "timing", work, "--playback", "rec", "--count", "3", "--output",
+                                    f"timing-{label}.csv", *dev, phase="18")
+            steps[f"timing ({label})"] = {"wall_s": run.wall, "launches": run.launches}
+            with open(os.path.join(work, f"timing-{label}.csv")) as fp:
+                rows[label] = [{k: v for k, v in r.items() if k not in ("received_ms", "latency_ms")}
+                               for r in csv.DictReader(fp)]
+        with open(os.path.join(work, "joined-card.ply"), "rb") as a, open(os.path.join(work, "joined-cpu.ply"),
+                                                                           "rb") as b:
+            check(a.read() == b.read(), "join: the card's file differs from the CPU run's")
+        check(rows["card"] == rows["cpu"] and len(rows["card"]) == 3,
+              f"timing: rows {rows['card']}, with --device cpu {rows['cpu']}")
+        print(f"{c.card} phase 18 (f): join of 2 files and timing of a 3-frame recording equal to the --device cpu"
+              f" runs; (wall s, launches) {[(k, v['wall_s'], v['launches']) for k, v in steps.items() if '(' in k]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"{c.card} phase 18 ok {c.lap()}: (wall s, launches) by step"
+          f" {[(k, v['wall_s'], v['launches']) for k, v in steps.items()]}")
+    return steps
 
 
 def main() -> int:
@@ -2943,10 +3393,12 @@ def main() -> int:
     record += times_phase(ctx, s12, s13, s14, k4)
     s16 = codec_phase(ctx)
     s17 = cli_phase(ctx)
+    s18 = tools_phase(ctx, s17["scene_ply"])
     for r in record:
         r["codec_launches"] = s16["launches"].get({"segment_reduce": "segment_reduce_sorted",
                                                    "compact": "compact_kernel_cm"}.get(r["name"]), 0)
         r["register_launches"] = s17["launches"][r["name"]]
+        r["tools_launches"] = {step: v["launches"][r["name"]] for step, v in s18.items()}
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

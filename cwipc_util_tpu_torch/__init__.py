@@ -85,6 +85,7 @@ from .utils.logging import (
     CWIPC_LOG_LEVEL_NONE,
     CWIPC_LOG_LEVEL_TRACE,
     CWIPC_LOG_LEVEL_WARNING,
+    _cwipc_log_emit,
     cwipc_log_configure,
     cwipc_log_default_callback,
 )
@@ -264,4 +265,5 @@ __all__ = [
     "downsample_outliers_tilefilter",
     "downsample_outliers_tilefilter_exact",
     "resolve_device",
+    "_cwipc_log_emit",
 ]

@@ -14,10 +14,11 @@
 // indicator in bf16, which rounds above 256; at the CPU tests' S = 64 both
 // are exact, and at S = 1536 only this kernel and its plain version agree.)
 //
-// Bound on the H100: operations, one compare and one add per element and
-// step (805,306,368 element-steps at S 1536, T 64, 64 tiles) over the
-// INT32 issue rate, 64 lanes x 132 SMs x the SM clock; the i32 input read
-// once is 50 MB, 15 us at 3.35 TB/s.
+// Bound on the H100 (chip_smoke.py's count): operations, one INT32 issue
+// per element and step (805,306,368 element-steps at S 1536, T 64, 64
+// tiles) over the INT32 issue rate, 64 lanes x 132 SMs x the SM clock; the
+// i32 input read once is 50 MB, 15 us at 3.35 TB/s.  Each element-step
+// does a compare and an add, so the count is a lower bound on the issues.
 //
 // Design: every thread loads its elements into registers once and runs all
 // T steps on them, so the card reads x once.  The CUDA-core forms give a

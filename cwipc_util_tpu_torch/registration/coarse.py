@@ -6,9 +6,9 @@ once and renders it with the numpy splat of ``io/render.py``.  The tiles
 are cut on the cloud's device (``get_pc_for_camnum``, kernel 3 on CUDA);
 the result cloud is transformed on the host, as everywhere in
 ``registration/util.py``, and joined on the device.  The manual corner picking
-of ``MultiCameraCoarseColorTargetInteractive`` needs the point pickers of
-the JAX package's ``registration/util.py``, which are not ported yet: it
-raises :class:`CwipcError` where the JAX package would open a window.
+of ``MultiCameraCoarseColorTargetInteractive`` falls back to the automated
+detector on a headless host, as in the JAX package; with a display
+``pick_points`` raises :class:`CwipcError` until the viewer is ported.
 
 Re-implementation of the reference's multicoarse module
 (reference: python/cwipc/registration/multicoarse.py): each camera's tile is
@@ -44,7 +44,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.errors import CwipcError
 from ..core.pointcloud import cwipc_pointcloud_wrapper
 from ..io.render import OrbitCamera, render_points
 from .abstract import RegistrationTransformation
@@ -364,14 +363,20 @@ class MultiCameraCoarseColorTargetInteractive(MultiCameraCoarseColorTarget):
     shift-clicks the four colored corners (red, green, blue, yellow — in
     that order) of the target in a viewer window per camera
     (reference: multicoarse.py:277.., o3d pick window via
-    registration/util.py:244-257).  The pickers are not ported yet."""
+    registration/util.py:244-257).  Headless runs (no display) fall back
+    to the automated color segmentation of the parent class; with a
+    display ``pick_points`` raises until the viewer is ported."""
 
     def _find_markers(self, pc: cwipc_pointcloud_wrapper) -> Dict[int, np.ndarray]:
-        raise CwipcError(
-            "MultiCameraCoarseColorTargetInteractive needs the point pickers of"
-            " registration/util.py (pick_points, o3d_pick_points), which are not"
-            " ported yet (ROADMAP Queue 1 item 5)"
+        from .util import pick_points
+
+        picked = pick_points(
+            "Pick target corners: red, green, blue, yellow", pc, count=4
         )
+        if len(picked) != 4:
+            return super()._find_markers(pc)
+        xyz = pc.get_numpy_matrix(onlyGeometry=True).astype(np.float64)
+        return {0: xyz[np.asarray(picked)]}
 
 
 DEFAULT_COARSE_ALGORITHM = MultiCameraCoarseAruco

@@ -6,11 +6,15 @@ radius percentiles and the algorithm base classes.  Every cloud these
 helpers derive stays on its input's device.
 
 Not ported yet: the viewer pickers (``project_point_indices``,
-``pick_index_at``, ``pick_points``, ``show_pointcloud``, ``o3d_*``).
+``pick_index_at``, ``show_pointcloud``, ``o3d_*``) and ``pick_points``
+on a host with a display; on a headless host ``pick_points`` returns no
+points, as the JAX package's does, so callers fall back to their
+automated detectors.
 """
 
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -21,7 +25,10 @@ from .. import (
     cwipc_join,
     cwipc_tilefilter,
 )
+from ..core.buffers import PointBuffer, bucket_capacity
+from ..core.errors import CwipcError
 from ..core.pointcloud import cwipc_pointcloud_wrapper
+from ..ops import compaction
 
 RegistrationTransformation = np.ndarray  # 4x4 float64
 Vector3 = np.ndarray
@@ -93,14 +100,17 @@ def cwipc_tilefilter_masked(
 ) -> cwipc_pointcloud_wrapper:
     """Select points whose tile has any of the mask bits set (AND-mask select,
     reference: registration/util.py:98-112) -- unlike cwipc_tilefilter's
-    exact match."""
-    arr = pc.get_numpy_array()
-    sel = (arr["tile"] & mask) != 0
-    sub = arr[sel]
-    m = np.zeros((sub.shape[0], 7), np.float32)
-    for i, f in enumerate(("x", "y", "z", "r", "g", "b", "tile")):
-        m[:, i] = sub[f]
-    return _derived(m, pc)
+    exact match.  The cut is an order-preserving compaction on the cloud's
+    device (kernel 3 on CUDA) and one read of its count: the result keeps
+    the capacity bucket of its own points, as a cloud built from them
+    would, since the queries that take it scan every slot."""
+    buf = pc._access_buffer()
+    keep = (((buf.rgba >> 24) & 0xFF) & int(mask)) != 0
+    out = compaction.compact(buf, keep & buf.valid_mask())
+    n = int(out.count)
+    cap = bucket_capacity(n)
+    return cwipc_pointcloud_wrapper(PointBuffer(xyz=out.xyz[:cap], rgba=out.rgba[:cap], count=out.count),
+                                    pc.timestamp(), pc.cellsize(), _count_hint=n)
 
 
 def cwipc_direction_filter(
@@ -371,3 +381,28 @@ class BaseMulticamAlgorithm(MulticamAlgorithm):
     def get_pointcloud_for_tilemask(self, tilenum: int) -> cwipc_pointcloud_wrapper:
         """Reference-parity name (reference: multicoarse.py:54-58)."""
         return self.get_pc_for_tilemask(tilenum)
+
+
+def _try_cv2_gui() -> bool:
+    """Whether a cv2 window can open: a display and cv2 (the JAX package's
+    io/visualizer_sink.py:23-32)."""
+    if not os.environ.get("DISPLAY") and os.name != "nt":
+        return False
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def pick_points(title: str, pc: cwipc_pointcloud_wrapper, count: int = 4, timeout_ms: int = 120000) -> List[int]:
+    """Interactive point picking in the viewer; returns the picked indices.
+    Headless runs (no GUI) return [] at once, as the JAX package's do, and
+    callers fall back to their automated detectors.  With a display it
+    raises: the viewer is not ported yet (ROADMAP Queue 1 item 3)."""
+    if not _try_cv2_gui():
+        return []
+    raise CwipcError(
+        f"{title}: pick_points needs the viewer (io/visualizer_sink.py), which is not"
+        " ported yet (ROADMAP Queue 1 item 3)"
+    )

@@ -2,7 +2,10 @@
 
 The port of cwipc_util_tpu/scripts/_scriptsupport.py.  The parser gains
 one argument, ``--device`` (default ``cuda``; ``cpu`` runs on the host):
-the port's explicit device, which every source the factory builds gets.
+the port's explicit device, which every source the factory builds gets,
+and every file ``read_pointcloud`` reads (commands on
+``BaseArgumentParser`` that read clouds add it with
+``add_device_argument``).
 Naming CUDA where there is none raises :class:`CwipcError`, as
 ``resolve_device`` does.  The DASH sources (``--lldplay``,
 ``--mt-lldplay``) are not ported yet and raise :class:`CwipcError`.
@@ -37,6 +40,8 @@ from .. import (
     cwipc_log_configure,
     cwipc_log_default_callback,
     cwipc_proxy,
+    cwipc_read,
+    cwipc_read_debugdump,
     cwipc_synthetic,
 )
 from .. import filters
@@ -102,10 +107,11 @@ def _guess_playback_type(filenames: List[str]) -> Optional[str]:
     return exts.pop()
 
 
-def not_ported(flag: str, module: str) -> CwipcError:
-    """The error of a flag whose module the port does not have yet."""
+def not_ported(flag: str, module: str, item: int) -> CwipcError:
+    """The error of a flag whose module the port does not have yet;
+    ``item`` is the ROADMAP Queue 1 item that ports it."""
     return CwipcError(
-        f"{flag} needs {module}, which is not ported yet (ROADMAP Queue 1 item 5)"
+        f"{flag} needs {module}, which is not ported yet (ROADMAP Queue 1 item {item})"
     )
 
 
@@ -192,9 +198,9 @@ def activesource_factory_from_args(
 
         return make_mt_netclient
     if args.lldplay:
-        raise not_ported("--lldplay", "net/source_lldplay.py")
+        raise not_ported("--lldplay", "net/source_lldplay.py", 4)
     if args.mt_lldplay:
-        raise not_ported("--mt-lldplay", "net/source_lldplay.py")
+        raise not_ported("--mt-lldplay", "net/source_lldplay.py", 4)
     if getattr(args, "kinect", False) or getattr(args, "realsense", False) or getattr(args, "orbbec", False):
         name = "kinect" if args.kinect else ("realsense2" if args.realsense else "orbbec")
         if not cwipc_check_module(name):
@@ -333,6 +339,18 @@ class SourceServer:
         return self.latency_grab
 
 
+def read_pointcloud(filename: str, device) -> cwipc_pointcloud_wrapper:
+    """A .cwipcdump or .ply file as a cloud on ``device``."""
+    if filename.endswith(".cwipcdump"):
+        return cwipc_read_debugdump(filename, device)
+    return cwipc_read(filename, 0, device)
+
+
+def add_device_argument(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--device", action="store", default="cuda",
+                        help="Torch device the clouds go to (default cuda; cpu runs on the host)")
+
+
 def BaseArgumentParser(*args, **kwargs) -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(*args, **kwargs)
     parser.add_argument("--version", action="store_true", help="Print version and exit")
@@ -370,8 +388,7 @@ def ArgumentParser(*args, **kwargs) -> argparse.ArgumentParser:
     inp.add_argument("--nodrop", action="store_true", help="Do not drop frames on full queues")
     inp.add_argument("--filter", action="append", metavar="FILTERDESC", help="Apply filter(s) to each cloud, in order")
     inp.add_argument("--help_filters", action="store_true", help="List available filters and exit")
-    parser.add_argument("--device", action="store", default="cuda",
-                        help="Torch device the clouds go to (default cuda; cpu runs on the host)")
+    add_device_argument(parser)
     return parser
 
 

@@ -3,10 +3,11 @@
 The port of cwipc_util_tpu/scripts/cwipc_register.py.  Captures, files
 and the registration run on ``--device`` (default CUDA): the fine
 alignment's nearest neighbours on kernel 5 and its tile cuts on kernel 3.
-The viewer (``--interactive``, ``--guided`` without ``--guided_noviewer``),
-``--plot``, ``--no_aruco`` and the guided "show" need modules that are not
-ported yet; each raises :class:`CwipcError` where the JAX script would
-use the module.
+The viewer (``--interactive``, ``--guided`` without ``--guided_noviewer``)
+is not ported yet: it raises :class:`CwipcError` where the JAX script
+would use it, and the guided "show" prints that error and asks again, as
+the JAX script does when it cannot show.  ``--no_aruco`` and
+``--tabletop`` run the automated color-target detector.
 
 Re-implementation of the reference's register script
 (reference: python/cwipc/scripts/cwipc_register.py:61-685): create or load a
@@ -211,7 +212,7 @@ class Registrator:
         (reference RegistrationVisualizer + interactive_capture, :44-59,:499-518).
         The viewer is not ported yet."""
         flag = "--guided" if self.args.guided else "--interactive"
-        raise not_ported(f"{flag} (the viewer)", "io/visualizer.py")
+        raise not_ported(f"{flag} (the viewer)", "io/visualizer.py", 3)
 
     # -- config -----------------------------------------------------------------
 
@@ -334,17 +335,17 @@ class Registrator:
         best = max(correspondences) if correspondences else 0.0
         print(f"register: alignment {label}: overall correspondence {best:.5f}")
         if self.args.plot:
-            raise not_ported("--plot", "registration/plot.py")
+            from ..registration.plot import plot_analysis_results
+
+            plot_analysis_results(all_results, title=f"Alignment {label}")
         return best
 
     # -- stages -------------------------------------------------------------------
 
     def coarse_registration(self, pc) -> bool:
-        if self.args.no_aruco:
-            raise not_ported("--no_aruco", "the point pickers of registration/util.py")
         algo_cls = (
             coarse_mod.MultiCameraCoarseColorTarget
-            if self.args.tabletop
+            if self.args.tabletop or self.args.no_aruco
             else coarse_mod.MultiCameraCoarseAruco
         )
         print(f"register: coarse alignment class {algo_cls.__name__}")
@@ -412,7 +413,10 @@ class Registrator:
                     if answer == "no":
                         return False
                     if answer == "show":
-                        raise not_ported("the guided 'show'", "show_pointcloud of registration/util.py")
+                        # as the JAX script does when it cannot show: say
+                        # why and ask again
+                        error = not_ported("the guided 'show'", "show_pointcloud of registration/util.py", 3)
+                        print(f"register: cannot show: {error}")
         finally:
             # one full merged cloud per stage otherwise accumulates across
             # guided-mode passes

@@ -19,7 +19,11 @@ process through their scripts' ``main``.  Tolerances:
 * The recordings flow at 9,000 points: the conditions of the JAX test
   (tests/test_scripts.py:694-699), and 2 frames replayed fused.
 * A CUDA default without a card raises CwipcError; so does each flag
-  whose module is not ported.
+  whose module is not ported (``--lldplay``, ``--mt-lldplay``,
+  ``forward --lldpkg``, the viewer's); ``register --plot`` saves its
+  figure.
+* ``register --no_aruco`` on a two-camera color target: the coarse
+  stage's camera transforms within 1e-9 of the JAX register's.
 """
 
 import json
@@ -44,13 +48,13 @@ from cwipc_util_tpu_torch.filters.simulatecams import SimulatecamsFilter
 from cwipc_util_tpu_torch.models.synthetic import _generate_host
 from cwipc_util_tpu_torch.registration.cameraconfig import CameraConfig, default_cameraconfig
 from cwipc_util_tpu_torch.registration.util import cwipc_transform
-from cwipc_util_tpu_torch.scripts import _scriptsupport, cwipc_register
+from cwipc_util_tpu_torch.scripts import _scriptsupport, cwipc_forward, cwipc_register
 from cwipc_util_tpu_torch.scripts.cwipc_create_analysis_test import perturbation
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _HARNESS = r"""
-import importlib.abc, runpy, sys
+import importlib.abc, json, runpy, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -59,24 +63,49 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Block())
-sys.argv = ["cwipc_util_tpu_torch"] + sys.argv[1:]
+RECORDED = []
+exec(sys.argv[2])
+module, commands = sys.argv[1], [[]]
+for arg in sys.argv[3:]:
+    if arg == "--then":
+        commands.append([])
+    else:
+        commands[-1].append(arg)
+status = 0
 try:
-    runpy.run_module("cwipc_util_tpu_torch", run_name="__main__", alter_sys=True)
+    for argv in commands:
+        sys.argv = [module] + argv
+        if len(commands) == 1:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+            continue
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+            code = 0
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else int(e.code is not None)
+        print(f"=== exit {code}", flush=True)
+        status = status or code
 finally:
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cwipc_util_tpu")]
     print("imported", leaked, file=sys.stderr)
+    print("recorded", json.dumps(RECORDED), file=sys.stderr)
+sys.exit(status)
 """
 
 
-def _cli_start(cwd, *args):
-    """Start one port command in a jax-less subprocess.  It gets 2 threads:
-    beside the other test workers, more threads than that spin on a full
-    machine (the recordings flow took over 240 s so under Tier-1, ~45 s
+def _cli_start(cwd, *args, module="cwipc_util_tpu_torch", prelude=""):
+    """Start one port command in a jax-less subprocess, run as ``python -m
+    module`` runs it; ``--then`` separates further commands run one after
+    another in the same process, each followed by a line ``=== exit N``
+    (a command that raises ends the run).  ``prelude`` runs first and may
+    append to ``RECORDED``, printed as JSON on a last ``recorded`` line of
+    stderr.  It gets 2 threads: beside the other test workers, more threads
+    than that spin on a full machine (the recordings flow took over 240 s so under Tier-1, ~45 s
     with 2 threads beside six busy processes)."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     env.update(OMP_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2", MKL_NUM_THREADS="2")
-    return subprocess.Popen([sys.executable, "-c", _HARNESS, *args], cwd=str(cwd), env=env,
+    return subprocess.Popen([sys.executable, "-c", _HARNESS, module, prelude, *args], cwd=str(cwd), env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -119,10 +148,12 @@ def test_version_help_and_check(tmp_path):
     rv = _cli_wait(procs[1])
     assert rv.returncode == 1  # as the JAX dispatcher's help
     listed = re.findall(r"^  (\w+) +- ", rv.stderr, re.M)
-    assert listed[:2] == ["register", "create_analysis_test"], rv.stderr
+    assert listed[:2] == ["grab", "register"], rv.stderr
+    assert listed[2:11] == ["analyze_registration", "create_analysis_test", "find_transform", "forward", "join",
+                            "netserver", "test_aligner", "timing", "toproxy"], rv.stderr
     for special in ("help", "version", "check", "python", "parallel"):
         assert special in listed
-    assert not {"view", "grab", "play", "copy", "forward"} & set(listed)
+    assert not {"view", "play", "copy"} & set(listed)
 
 
 def test_create_analysis_test_equals_the_jax_script(tmp_path, monkeypatch):
@@ -202,8 +233,8 @@ def test_recordings_flow_registers_and_replays_fused(tmp_path):
     cap.stop()
 
 
-def _args(*argv):
-    parser = _scriptsupport.ArgumentParser()
+def _args(*argv, parser=None):
+    parser = parser or _scriptsupport.ArgumentParser()
     for flag in ("--guided", "--interactive", "--guided_noviewer", "--tabletop", "--no_aruco", "--plot",
                  "--nograb", "--skip", "--coarse", "--nocoarse"):
         parser.add_argument(flag, action="store_true" if flag not in ("--nograb", "--skip") else "store")
@@ -228,25 +259,53 @@ def test_cuda_default_without_a_card_raises(monkeypatch):
     src.stop()
 
 
-def test_flags_of_unported_modules_raise():
+def test_flags_of_unported_modules_raise(tmp_path, monkeypatch):
     for flag in ("--lldplay", "--mt-lldplay"):
         with pytest.raises(CwipcError, match="net/source_lldplay.py"):
             _scriptsupport.activesource_factory_from_args(_args(flag, "x", "--device", "cpu"))
+    monkeypatch.setattr(sys, "argv", ["cwipc forward", "--lldpkg", "http://localhost/x", "--synthetic",
+                                      "--device", "cpu"])
+    with pytest.raises(CwipcError, match="net/sink_lldpkg.py"):
+        cwipc_forward.main()
     for flag in ("--interactive", "--guided"):
         reg = cwipc_register.Registrator(_args(flag, "--device", "cpu"))
         with pytest.raises(CwipcError, match="io/visualizer.py"):
             reg.interactive_capture()
-    reg = cwipc_register.Registrator(_args("--no_aruco", "--device", "cpu"))
-    with pytest.raises(CwipcError, match="registration/util.py"):
-        reg.coarse_registration(None)
     pts = np.zeros(64, port.POINT_DTYPE)
     pts["x"] = np.arange(64, dtype=np.float32) * 0.01
     pts["tile"] = np.repeat([1, 2], 32)
+    # --plot is ported: headless, the figure is saved as the JAX script saves it
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("DISPLAY", raising=False)
     reg = cwipc_register.Registrator(_args("--plot", "--device", "cpu"))
     reg.cameraconfig = CameraConfig("unused.json")
     reg.cameraconfig.load(json.dumps(default_cameraconfig("synthetic", ["a", "b"])).encode())
-    with pytest.raises(CwipcError, match="registration/plot.py"):
-        reg.check_alignment(port.cwipc_from_numpy_array(pts, 0, device="cpu"), "before")
+    assert reg.check_alignment(port.cwipc_from_numpy_array(pts, 0, device="cpu"), "before") >= 0
+    assert (tmp_path / "registration_analysis.png").stat().st_size > 1000
+
+
+def test_register_no_aruco_matches_jax():
+    """``register --no_aruco`` runs the automated color-target detector, as
+    the JAX script does: on the two-camera color-target scene the coarse
+    stage's camera transforms equal the JAX register's within 1e-9."""
+    from cwipc_util_tpu.scripts import _scriptsupport as j_scriptsupport
+
+    from test_torch_coarse import color_target_scene
+
+    m = color_target_scene()
+    got = {}
+    for name, reg, pc in (
+            ("port", cwipc_register.Registrator(_args("--no_aruco", "--device", "cpu")),
+             port.cwipc_from_numpy_matrix(m, 0, device="cpu")),
+            ("jax", j_register.Registrator(_args("--no_aruco", parser=j_scriptsupport.ArgumentParser())),
+             jc.cwipc_from_numpy_matrix(m, 0))):
+        reg.cameraconfig = (CameraConfig if name == "port" else j_register.CameraConfig)("unused.json")
+        reg.cameraconfig.load(json.dumps(default_cameraconfig("synthetic", ["a", "b"])).encode())
+        assert reg.coarse_registration(pc), f"{name}: the color target was not found"
+        got[name] = [np.asarray(reg.cameraconfig.get_transform(i).get_matrix()) for i in range(2)]
+    assert not np.allclose(got["port"][0], np.identity(4))
+    for T, Tj in zip(got["port"], got["jax"], strict=True):
+        np.testing.assert_allclose(T, Tj, rtol=0, atol=1e-9)
 
 
 def test_source_server_grabs_through_filters():

@@ -11,6 +11,10 @@ from the same points), and each camera's marker centre lands within 2 cm
 of the origin.  The pre-seed stub of tests/test_registration.py:575-635 is
 mirrored: a camera seeded with ``set_transformation`` starts the marker
 chain (translations within 1e-9), and without it the chain cannot start.
+The interactive color target falls back on a headless host to the
+automated detector (transforms equal to the automated class's, and to the
+JAX interactive class's within 1e-9) and raises with a display until the
+viewer is ported.
 """
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
@@ -56,7 +60,9 @@ def test_multicoarse_names_the_coarse_classes():
                                rtol=0, atol=1e-12)
 
 
-def test_color_target_matches_jax_and_interactive_raises():
+def color_target_scene():
+    """Two cameras (tiles 1 and 2) that each see the four color blobs of the
+    target, 40 points a blob with 5 mm of noise, at their own offset."""
     rng = np.random.default_rng(9)
     parts = []
     for cam, offset in enumerate(((0.2, 0.0, 0.1), (-0.1, 0.0, 0.3))):
@@ -68,7 +74,11 @@ def test_color_target_matches_jax_and_interactive_raises():
             blob[:, 3:6] = ref
             blob[:, 6] = 1 << cam
             parts.append(blob)
-    m = np.concatenate(parts)
+    return np.concatenate(parts)
+
+
+def test_color_target_matches_jax_and_interactive_raises(monkeypatch):
+    m = color_target_scene()
     algo = coarse.MultiCameraCoarseColorTarget()
     algo.set_tiled_pointcloud(port.cwipc_from_numpy_matrix(m, 0, device="cpu"))
     jalgo = jcoarse.MultiCameraCoarseColorTarget()
@@ -76,9 +86,24 @@ def test_color_target_matches_jax_and_interactive_raises():
     assert algo.run() and jalgo.run()
     for T, Tj in zip(algo.get_result_transformations(), jalgo.get_result_transformations(), strict=True):
         np.testing.assert_allclose(T, Tj, rtol=0, atol=1e-9)
+    # the interactive variant: headless, the pickers return no points and
+    # it falls back to the automated detector, as the JAX class does
+    # (registration/coarse.py:359-366, registration/util.py:345-360); with
+    # a display the port raises until the viewer is ported
+    monkeypatch.delenv("DISPLAY", raising=False)
     interactive = coarse.MultiCameraCoarseColorTargetInteractive()
     interactive.set_tiled_pointcloud(port.cwipc_from_numpy_matrix(m, 0, device="cpu"))
-    with pytest.raises(CwipcError, match="registration/util.py"):
+    jinteractive = jcoarse.MultiCameraCoarseColorTargetInteractive()
+    jinteractive.set_tiled_pointcloud(jc.cwipc_from_numpy_matrix(m, 0))
+    assert interactive.run() and jinteractive.run()
+    for T, Tj, Tp in zip(interactive.get_result_transformations(), jinteractive.get_result_transformations(),
+                         algo.get_result_transformations(), strict=True):
+        np.testing.assert_allclose(T, Tj, rtol=0, atol=1e-9)
+        np.testing.assert_array_equal(T, Tp)
+    monkeypatch.setenv("DISPLAY", ":0")
+    interactive = coarse.MultiCameraCoarseColorTargetInteractive()
+    interactive.set_tiled_pointcloud(port.cwipc_from_numpy_matrix(m, 0, device="cpu"))
+    with pytest.raises(CwipcError, match="io/visualizer_sink.py"):
         interactive.run()
 
 
