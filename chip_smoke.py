@@ -78,7 +78,11 @@ phases that each stop the run at the first failure:
    ``digit_histogram`` and the passes its tile counters show it ran equal
    to the host-side plan's ``passes_run``;
 13. kernel 7 (the scan probe) bit-equal to its plain version in all five
-   forms at S 1536, T 64, 64 tiles, on sel_roofline.py's inputs;
+   forms at S 1536, T 64, 64 tiles, on sel_roofline.py's inputs, and at
+   S 1000, at one tile and at S 1536 / T 16384 (S * T > 2^24: its per-step
+   path), mxu equal to i32 at each; i32 and mxu also on one tile of 4,096
+   rows whose counts are odd and whose sums pass 2^24 (T 4200), where the
+   f32 step order rounds; one kernel launch a call (torch.profiler);
 14. the ops and filter path: cwipc_downsample of the bench cloud at 1 mm
    (~2,000 cells) and of 1M points over 200 m at 5 mm (40,000 cells), both
    on the exact-key path, against a numpy oracle; the grid outlier method on the
@@ -97,7 +101,10 @@ phases that each stop the run at the first failure:
    kernels 1 and 2's host time a call by part (kernel 1's one allocation
    beside its earlier six, kernel 2's checks beside its earlier ones) and
    their device time by kernel (kernel 2 at windows 16 and 32);
-   kernel 7 per form in element-steps/s, kernel 4's scan yardstick, the
+   kernel 7 per form: CUDA-event ms around the wrapper call, device time
+   by torch.profiler, element-steps/s, its bound and the share of it in
+   device time, the SM clock nvidia-smi reads while it runs beside
+   clocks.max.sm; kernel 4's scan yardstick at kernel 7's i32 rate; the
    exact-key downsamples, the grid method and the filter frame;
 16. the codec (``codec_phase``): the synthetic source's default 160,000-
    point frame and the 1M-point body with half its tiles raised by 0x80,
@@ -176,10 +183,12 @@ phases that each stop the run at the first failure:
 Each phase line ends with the wall seconds the phase took.  The kernels
 line gives, per kernel, its time, its plain version's, its bound (the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate:
-float32 at 67 TFLOP/s, an H100 SXM's published peaks; for kernel 7 the
-INT32 issue rate, 64 lanes x the SMs x the SM clock, or the f16 tensor
-cores' 989 TFLOP/s; counted from this run's inputs: only the rows, slots
-and points the function must read) and, where one PyTorch call computes
+float32 at 67 TFLOP/s, an H100 SXM's published peaks; for kernel 7 one
+INT32 issue an element-step, half of one for add (IADD3 adds two
+elements), at the INT32 issue rate, 64 lanes x the SMs x the SM clock;
+mxu's int8 tensor-core work at 1,979 TOP/s is far less than its CUDA-core
+indicator build; counted from this run's inputs: only the rows, slots and
+points the function must read) and, where one PyTorch call computes
 the same function, that call's time.  ``launches`` is the count of the
 main path's run; kernels 6 and 7 are on no path (as in the JAX package),
 and theirs is the count of phase 12's sort -> kernel 1 run and phase 13's
@@ -235,10 +244,12 @@ PAIR_MAXD = 0.03  # covers the pair's largest displacement (3.4 cm at 99.9 %) an
 # mid-tier scan: S rows, T steps, 128-column tiles)
 SORT_NS = (8192, 1 << 15, 1 << 20)
 SCAN_S, SCAN_T, SCAN_TILES = 1536, 64, 64
+# kernel 7's edge shapes: a ragged S, one tile, and S * T > 2^24 (the per-step path)
+SCAN_EDGES = (("ragged S", 1000, 64, 64), ("one tile", 1536, 64, 1), ("S*T > 2^24", 1536, 16384, 1))
 # an H100's INT32 lanes per SM (times the SM count and clock for the issue
-# rate) and its dense f16 tensor-core peak (NVIDIA's data sheet)
+# rate) and its dense int8 tensor-core peak (NVIDIA's data sheet)
 INT32_LANES = 64
-F16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
 K4_MAX_STEPS = 31  # halving hi - lo < 2^31 takes at most 31 compare-and-count steps
 # the exact-key downsamples: the bench cloud at 1 mm (~2,000 cells) and
 # 1M uniform points over 200 m at 5 mm (40,000 cells, every voxel a singleton)
@@ -627,10 +638,12 @@ def sort_phase(c):
 
 
 def scan_phase(c):
-    """Phase 13: kernel 7 against its plain version, all five forms."""
+    """Phase 13: kernel 7 against its plain version, all five forms, on
+    both of its paths; one device operation a call."""
     import torch
 
-    from cwipc_util_tpu_torch.ops.scan_probe import FORMS, make_inputs, scan_program, scan_program_plain
+    from cwipc_util_tpu_torch.ops.scan_probe import (FORMS, make_inputs, rounding_input, scan_plan, scan_program,
+                                                     scan_program_plain)
 
     xs = {f: x.to(c.dev) for f, x in make_inputs(SCAN_S, SCAN_TILES).items()}
     torch.cuda.synchronize()
@@ -648,8 +661,32 @@ def scan_phase(c):
         err = max(err, float((outs[f].double() - want.double()).abs().max()))
         means[f] = float(outs[f][0].double().mean())
     check(torch.equal(outs["mxu"], outs["i32"]), "kernel 7: the mxu count differs from the i32 count")
+    # the edge shapes and the per-step path (S * T > 2^24), every form
+    paths = {}
+    for label, s_, t_, tiles in SCAN_EDGES:
+        ex = {f: x.to(c.dev) for f, x in make_inputs(s_, tiles).items()}
+        for f in FORMS:
+            got = scan_program(ex[f], f, t_)
+            check(same_bits(got, scan_program_plain(ex[f], f, t_)),
+                  f"kernel 7 ({f}) differs from its plain version at {label} (S {s_}, T {t_}, {tiles} tiles)")
+            paths.setdefault(label, set()).add("per step" if scan_plan(s_, t_, tiles * 128, f).per_step
+                                               else "total")
+        got = {f: scan_program(ex[f], f, t_) for f in ("i32", "mxu")}
+        check(torch.equal(got["i32"], got["mxu"]), f"kernel 7: mxu differs from i32 at {label}")
+    odd = rounding_input().to(c.dev)
+    for f in ("i32", "mxu"):
+        got, want = scan_program(odd, f, 4200), scan_program_plain(odd, f, 4200)
+        check(same_bits(got, want), f"kernel 7 ({f}) differs from its plain version on the odd counts past 2^24")
+    check(bool(want[0].min() > 2**24), "kernel 7: the odd-count input's sums stay below 2^24")
+    ops = {f: device_ops(lambda: scan_program(xs[f], f, SCAN_T), calls=1) for f in FORMS}
+    for f, kern in ops.items():
+        check(len(kern) == 1 and kern[0][1] == 1, f"kernel 7 ({f}): a call ran {kern}, not one kernel launch")
+    torch.cuda.synchronize()
     print(f"{c.card} phase 13 ok {c.lap()}: kernel 7 bit-equal to its plain version in all five forms at"
-          f" S {SCAN_S}, T {SCAN_T}, {SCAN_TILES} tiles; mean accumulator per form {means}")
+          f" S {SCAN_S}, T {SCAN_T}, {SCAN_TILES} tiles, at {[(lb, s_, t_, n) for lb, s_, t_, n in SCAN_EDGES]}"
+          f" (paths {dict((k, sorted(v)) for k, v in paths.items())}) and on odd counts past 2^24 (S 4096,"
+          f" T 4200; i32, mxu); mxu equal to i32; one kernel a call {[(f, k[0][0][:40]) for f, k in ops.items()]};"
+          f" mean accumulator per form {means}")
     return dict(xs=xs, launches=launches, err=err)
 
 
@@ -879,15 +916,8 @@ def device_and_host(c, what, fn, unit):
     calls) and its host time a call (50 calls enqueued, then one
     synchronize)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-    per = [(e.key, e.count // 10, e.device_time_total / 10) for e in prof.key_averages() if e.device_time_total > 0]
+    per = device_ops(fn)
     torch.cuda.synchronize()
     t_0 = time.perf_counter()
     for _ in range(50):
@@ -897,6 +927,42 @@ def device_and_host(c, what, fn, unit):
     device = f"{sum(us for _, _, us in per)} us device time a {unit}" if per else "device time not measured"
     print(f"{c.card} {what}: {device} (by kernel: launches, us {[(k[:48], n_, us) for k, n_, us in per]});"
           f" host {host_us} us a call")
+
+
+def device_ops(fn, calls=10):
+    """fn's device operations (kernels, memsets, copies) by torch.profiler
+    over calls calls after a warm one: [(name, launches a call, device us a
+    call)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count // calls, e.device_time_total / calls) for e in prof.key_averages()
+            if e.device_time_total > 0]
+
+
+def sm_clock_during(fn, seconds=1.5):
+    """The SM clock (MHz) nvidia-smi reads every 50 ms while fn runs back
+    to back for about seconds: (lowest, median, highest) of the samples."""
+    import torch
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        t_0 = time.perf_counter()
+        while time.perf_counter() - t_0 < seconds:
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    mhz = sorted(int(v) for v in out.split() if v.isdigit())
+    return (mhz[0], statistics.median(mhz), mhz[-1]) if mhz else None
 
 
 def host_us(fn, n=200):
@@ -1113,19 +1179,27 @@ def times_phase(c, s12, s13, s14, k4):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int32_rate = INT32_LANES * sms * float(clock) * 1e6
     steps = SCAN_S * SCAN_TILES * 128 * SCAN_T
-    rates = {}
+    rates, dev_rates = {}, {}
     for f in FORMS:
         x = s13["xs"][f]
         kf = time_ms(lambda: scan_program(x, f, SCAN_T))
         pf = time_ms(lambda: scan_program_plain(x, f, SCAN_T), reps=3, warm=1)
-        rates[f] = steps / (kf / 1e3)
-        # the ones product on the tensor cores for mxu (JAX's ones [8, S]), else one int32 issue a step
-        ops_ms = (2 * 8 * steps / F16_TENSOR_FLOPS if f == "mxu" else steps / int32_rate) * 1e3
+        dus = sum(us for _, _, us in device_ops(lambda: scan_program(x, f, SCAN_T), calls=20))
+        mhz = sm_clock_during(lambda: scan_program(x, f, SCAN_T))
+        rates[f], dev_rates[f] = steps / (kf / 1e3), steps / (dus / 1e6)
+        # one INT32 issue a step (mxu too: it builds its indicator on the CUDA cores, and its
+        # tensor-core work, 2 x 16 x 32 x 8 int8 operations a 256 element-steps, is far less);
+        # add: half, as IADD3 adds two elements an issue
+        issues = steps / 2 if f == "add" else steps
+        ops_ms = max(issues / int32_rate, 2 * 16 * steps / INT8_TENSOR_OPS if f == "mxu" else 0.0) * 1e3
         fbms, fbby = bound(tensor_bytes(x) + 8 * x.shape[1] * 4, 0)
         if ops_ms > fbms:
             fbms, fbby = ops_ms, "operations"
-        print(f"{c.card} kernel scan_program ({f}): {kf} ms, {rates[f]} element-steps/s; plain PyTorch {pf} ms;"
-              f" bound {fbms} ms ({fbby})")
+        print(f"{c.card} kernel scan_program ({f}): {kf} ms (CUDA events around the wrapper call), device"
+              f" {dus} us (torch.profiler), {dev_rates[f]} element-steps/s of device time ({rates[f]} of event"
+              f" time); plain PyTorch {pf} ms; bound {fbms} ms ({fbby}: {issues} INT32 issues at {clock} MHz),"
+              f" {fbms / (dus / 1e3) * 100} % of it in device time; SM clock during the run {mhz} MHz"
+              f" (max {clock})")
         if f == "i32":
             records.append({
                 "name": "scan_program", "route": "cuda", "source": "cwipc_util_tpu_torch/csrc/scan_probe.cu",
@@ -1137,9 +1211,10 @@ def times_phase(c, s12, s13, s14, k4):
     k4_steps = k4["pairs"] * K4_MAX_STEPS
     k4_run = k4["pairs"] * k4["scans"]
     print(f"{c.card} kernel 4's scan yardstick: {k4['pairs']} ring pairs x at most {K4_MAX_STEPS} halving"
-          f" steps = {k4_steps} element-steps, {k4_steps / rates['i32'] * 1e3} ms at kernel 7's i32 rate; x the"
-          f" {k4['scans']} scans a query kernel 4 ran = {k4_run} element-steps, {k4_run / rates['i32'] * 1e3} ms"
-          f" (kernel 4 {k4['ms']} ms)")
+          f" steps = {k4_steps} element-steps, {k4_steps / dev_rates['i32'] * 1e3} ms at kernel 7's i32 rate in"
+          f" device time ({k4_steps / rates['i32'] * 1e3} ms at its event-time rate); x the {k4['scans']} scans"
+          f" a query kernel 4 ran = {k4_run} element-steps, {k4_run / dev_rates['i32'] * 1e3} ms"
+          f" ({k4_run / rates['i32'] * 1e3}) (kernel 4 {k4['ms']} ms)")
     for name, (buf_, cell) in ((k, v) for k, v in s14.items() if k.endswith("mm")):
         ms = time_ms(lambda: voxelize.downsample(buf_, cell, exact_keys=True), reps=5, warm=1)
         print(f"{c.card} exact-key downsample, {name}: median {ms} ms")

@@ -70,8 +70,8 @@ _SIGNATURES = {
     # scratch, scratch_bytes, stream
     "cwipc_sort_pairs": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          ctypes.c_longlong, _P),
-    # x, form, s, c, t_steps, cnt, out, stream
-    "cwipc_scan_probe": (_P, _I, _I, _I, _I, _P, _P, _P),
+    # x, form, s, c, t_steps, per_step, warps_per_strip, strips_per_block, out, stream
+    "cwipc_scan_probe": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -37,6 +37,14 @@ CUDA kernels cannot (they run on the card, in chip_smoke.py phases 8-12).
   regimes (drop max-passes; the merge-and-keep-lower network), loop for
   loop as the kernel runs them, allclose to the plain version for six
   (k, window) pairs, with duplicate points and count 0, 100 and n.
+* Kernel 7 (csrc/scan_probe.cu): ``scan_plan`` at sel_roofline.py's shape
+  (one wave of 132 SMs x 16 warps on the total path; one load a warp on
+  the per-step path), at a ragged S and at one tile, with the per-step
+  path chosen exactly where S * T > 2^24 (and always for ``add``); and a
+  torch emulation of both paths (each warp's row blocks, the rows a lane
+  holds, the pad rows and their subtraction, the flushed f32 counters, the
+  per-step sums kept STEP_CHUNK steps at a time and added in step order)
+  bit-equal to the plain version in every form.
 * The constants the plans mirror are the CUDA sources' own.
 """
 
@@ -56,6 +64,7 @@ from cwipc_util_tpu_torch.ops import (
     cols_select,
     compact_kernel,
     nn_select,
+    scan_probe,
     segment_reduce,
     sort_kernel,
     window_knn,
@@ -91,6 +100,10 @@ def test_plans_mirror_the_sources():
                                                     (CSRC / "segment_reduce.cu").read_text()).group(1), 16)
     assert window_knn.MAX_WINDOW == _constant("window_knn.cu", "MAX_WINDOW")
     assert window_knn.DROP_MAX == _constant("window_knn.cu", "DROP_MAX")
+    for name in ("STRIP", "LANE_ROWS", "ROWS", "MAX_WARPS", "STEP_CHUNK"):
+        assert getattr(scan_probe, name) == _constant("scan_probe.cu", name), name
+    assert scan_probe.EXACT == 1 << int(re.search(r"constexpr long long EXACT = 1LL << ([0-9]+);",
+                                                 (CSRC / "scan_probe.cu").read_text()).group(1))
 
 
 def _keys(kind: str, n: int) -> torch.Tensor:
@@ -451,3 +464,96 @@ def test_window_knn_selection_regimes(k, window):
         want = window_knn.window_knn_mean_distance_plain(x, y, z, cnt, k, window)
         assert torch.allclose(got, want, rtol=1e-5, atol=1e-7), (count, float((got - want).abs().max()))
         assert not got[count:].any()
+
+
+@pytest.mark.parametrize("form", scan_probe.FORMS)
+def test_scan_plan_sel_roofline(form):
+    plan = scan_probe.scan_plan(1536, 64, 64 * 128, form)
+    assert plan.row_blocks == 12 and plan.loads == 1
+    assert plan.blocks * plan.strips_per_block * scan_probe.STRIP == 64 * 128  # every column, once
+    # 1,024 strips x 2 warps, one wave of 132 SMs x 16 warps; T fits one chunk of per-step sums
+    assert plan.per_step == (form == "add") and plan.warps_per_strip == 2 and plan.strips_per_block == 2
+    assert plan.threads == 128 and plan.blocks == 512
+    assert plan.blocks * plan.threads // 32 <= scan_probe.SMS * scan_probe.WARPS_PER_SM
+    assert plan.smem_bytes == (4 * 64 * 8 * 4 if form == "add" else 0)
+
+
+@pytest.mark.parametrize("s, ntiles, rb, wps, spb, blocks", [(1000, 64, 8, 2, 2, 512), (1536, 1, 12, 12, 1, 16),
+                                                             (1000, 1, 8, 8, 1, 16), (0, 1, 0, 1, 4, 4),
+                                                             (1, 64, 1, 1, 4, 256)])
+def test_scan_plan_shapes(s, ntiles, rb, wps, spb, blocks):
+    plan = scan_probe.scan_plan(s, 64, ntiles * 128, "i32")
+    assert (plan.row_blocks, plan.warps_per_strip, plan.strips_per_block, plan.blocks) == (rb, wps, spb, blocks)
+    assert plan.threads <= scan_probe.MAX_WARPS * 32 and plan.threads == 32 * wps * spb
+
+
+@pytest.mark.parametrize("s", [1, 1536, 4096, 1 << 20])
+def test_scan_plan_per_step_exactly_past_2_24(s):
+    t_max = scan_probe.EXACT // s  # the last T whose S * T is at most 2^24
+    for form in ("i32", "i16", "bf16", "mxu"):
+        assert not scan_probe.scan_plan(s, t_max, 128, form).per_step
+        assert scan_probe.scan_plan(s, t_max + 1, 128, form).per_step
+    assert scan_probe.scan_plan(s, 1, 128, "add").per_step
+    big = scan_probe.scan_plan(4096, 4200, 128, "i32")  # 32 row blocks over 16 warps: reloaded each chunk
+    assert big.per_step and big.warps_per_strip == 16 and big.loads == -(-4200 // scan_probe.STEP_CHUNK)
+    once = scan_probe.scan_plan(1536, 16384, 128, "i32")  # 12 row blocks, a warp each: loaded once
+    assert once.per_step and once.warps_per_strip == 12 and once.loads == 1
+
+
+_PADS = {"i32": -(2**31), "mxu": -(2**31), "i16": -(2**15), "bf16": float("-inf"), "add": 0}
+
+
+def _emulate_scan_probe(x, form, t, per_step, wps):
+    """scan_probe.cu's arithmetic over torch tensors, warp by warp: the rows
+    lane g of a warp holds, the pad rows, the totals or the per-step sums,
+    their combination across the strip's warps and the f32 step order."""
+    s, c = x.shape
+    rows, br = scan_probe.ROWS, scan_probe.BLOCK_ROWS
+    nrb = -(-s // br)
+    xs = x.to(torch.float64 if form == "bf16" else torch.int64)
+    xs = torch.cat([xs, torch.full((nrb * br - s, c), _PADS[form], dtype=xs.dtype)])
+    mids = [float(scan_probe._mid(form, i)) if form == "bf16" else scan_probe._mid(form, i) for i in range(t)]
+    pads = 0 if form == "add" else nrb * br - s
+
+    def lane_rows(rb, g):
+        return xs[rb * br + g + scan_probe.LANE_ROWS * torch.arange(rows)]  # [ROWS, c]
+
+    def step_value(v, mid):  # a lane's sum at one step, wrapping as uint32
+        return (v.sum(0) if form == "add" else (v <= mid).sum(0)) % 2**32
+
+    if not per_step:
+        tot = torch.zeros(c, dtype=torch.int64)
+        for wr in range(wps):
+            for rb in range(wr, nrb, wps):
+                for g in range(scan_probe.LANE_ROWS):
+                    v = lane_rows(rb, g)
+                    a = torch.zeros((4, c), dtype=torch.float32)  # the four counters, k % 4
+                    for mid in mids:
+                        a += (v <= mid).view(rows // 4, 4, c).sum(0).to(torch.float32)
+                    tot += ((a[0] + a[1]) + (a[2] + a[3])).to(torch.int64)
+        total = (tot - pads * t) % 2**32
+        return torch.where(total >= 2**31, total - 2**32, total).to(torch.float32)
+    acc = torch.zeros(c, dtype=torch.float32)
+    for t0 in range(0, t, scan_probe.STEP_CHUNK):
+        steps = range(t0, min(t, t0 + scan_probe.STEP_CHUNK))
+        chunk = torch.zeros((len(steps), c), dtype=torch.int64)
+        for wr in range(wps):
+            for rb in range(wr, nrb, wps):
+                for i, step in enumerate(steps):
+                    chunk[i] += sum(step_value(lane_rows(rb, g), mids[step]) for g in range(scan_probe.LANE_ROWS))
+        for i in range(len(steps)):
+            v = (chunk[i] - pads) % 2**32
+            acc = acc + torch.where(v >= 2**31, v - 2**32, v).to(torch.float32)
+    return acc
+
+
+@pytest.mark.parametrize("form", scan_probe.FORMS)
+@pytest.mark.parametrize("s, t", [(1000, 3), (130, 70), (128, 2), (0, 2)])
+def test_scan_probe_emulation(form, s, t):
+    x = scan_probe.make_inputs(s, 1)[form][:, :16].contiguous()  # two strips
+    plan = scan_probe.scan_plan(s, t, 128, form)
+    want = scan_probe.scan_program_plain(torch.nn.functional.pad(x, (0, 112)), form, t)[0, :16]
+    for per_step in ({plan.per_step, True} if form != "add" else {True}):
+        for wps in {plan.warps_per_strip, 3}:
+            got = _emulate_scan_probe(x, form, t, per_step, wps)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (per_step, wps)
