@@ -180,6 +180,23 @@ phases that each stop the run at the first failure:
    equal to the ``--device cpu`` runs.  Each step prints its wall seconds
    and launches.
 
+19. the viewer and the DASH pair (``viewer_phase``), on the default
+   device: (a) ``view --playback`` of phase 17 (b)'s rig recordings in
+   process, headless but not ``--nodisplay``, with scripted keys (next
+   tile, tile 2, colorize, all tiles): every image byte-equal to the
+   ``--device cpu`` run's, kernel 3 launched in the tile select; then a
+   displayed frame part by part at each keymap state (ms of the tile
+   select, the read and the render, host reads and uploads) and the
+   renderer that drew (where GL drew, its image held to the splat's);
+   (b) ``play`` of a 3-frame recording (images byte-equal to the CPU
+   run's) and ``copy`` single -> single (file equal) and stream -> stream
+   ``--compress`` (kernel 1 launched; each stream equal to the CPU copy's
+   device program); (c) ``forward --lldpkg --tile 1`` into the fake
+   SIGNALS libraries built here (kernels 1 and 3 launched), back through
+   ``--mt-lldplay``: every frame decoded on the card to a solo decode's
+   count.  Every kernel 1 and 3 call is held bit-equal to its plain
+   version.
+
 Each phase line ends with the wall seconds the phase took.  The kernels
 line gives, per kernel, its time, its plain version's, its bound (the
 larger of its bytes over 3.35 TB/s and its operations over the peak rate:
@@ -194,12 +211,14 @@ main path's run; kernels 6 and 7 are on no path (as in the JAX package),
 and theirs is the count of phase 12's sort -> kernel 1 run and phase 13's
 probe run.  ``codec_launches`` is the count of phase 16's codec run,
 ``register_launches`` that of phase 17 (a)'s in-process register run,
-``tools_launches`` those of each step of phase 18.
+``tools_launches`` those of each step of phase 18, ``view_launches`` and
+``dash_launches`` those of phase 19's ``view`` and ``forward --lldpkg``.
 
 Run alone, outside a checkout, or without CUDA, it exits 2 and prints no
 result.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -1675,6 +1694,29 @@ def overall(stdout):
     return [float(v) for v in re.findall(r"overall correspondence (\d+\.\d+)", stdout)]
 
 
+@contextlib.contextmanager
+def held_compactions(c):
+    """Records the inputs of every kernel 3 call that launches (one on CUDA
+    tensors) inside the block, and yields the list; after the block, holds
+    each call bit-equal to its plain version (``c.compact_case``)."""
+    from cwipc_util_tpu_torch.ops import compaction
+
+    real, calls = compaction.compact_kernel_cm, []
+
+    def recording(*a):
+        if a[0].is_cuda:
+            calls.append(a)
+        return real(*a)
+
+    compaction.compact_kernel_cm = recording
+    try:
+        yield calls
+    finally:
+        compaction.compact_kernel_cm = real
+    for a in calls:
+        c.compact_case(*a)
+
+
 def script_in_process(c, command, cwd, *args, phase="17"):
     """A command's script ``main()`` in this process, from cwd, with every
     kernel's count set to 0 just before and read just after.  Returns a
@@ -1690,7 +1732,6 @@ def script_in_process(c, command, cwd, *args, phase="17"):
     it runs, and after it each call is held to its plain version as phase 9
     holds the flow's: kernel 5's d2 bit-equal and ids equal, kernels 3 and
     1 bit-equal."""
-    import contextlib
     import importlib
     import io
     from types import SimpleNamespace
@@ -1698,7 +1739,7 @@ def script_in_process(c, command, cwd, *args, phase="17"):
     import numpy as np
     import torch
 
-    from cwipc_util_tpu_torch.ops import compaction, knn, voxelize
+    from cwipc_util_tpu_torch.ops import knn, voxelize
     from cwipc_util_tpu_torch.ops.segment_reduce import segment_reduce_sorted_plain
     from cwipc_util_tpu_torch.registration import analyze, fine
 
@@ -1706,11 +1747,10 @@ def script_in_process(c, command, cwd, *args, phase="17"):
     wrappers = kernel_wrappers()
     out, argv, here = io.StringIO(), sys.argv, os.getcwd()
     searches, results = {"grid": 0, "two-scale": 0}, []
-    real = {"params": fine.nn_grid_params, "select": knn.nn_select, "compact": compaction.compact_kernel_cm,
-            "reduce": voxelize.segment_reduce_sorted, "results": analyze.RegistrationAnalyzer.get_results,
+    real = {"params": fine.nn_grid_params, "select": knn.nn_select, "reduce": voxelize.segment_reduce_sorted, "results": analyze.RegistrationAnalyzer.get_results,
             "transform": fine.RegistrationComputer.get_result_transformation,
             "knn_params": knn.nn_grid_params, "distances": analyze._nn_distances}
-    grids, compactions, reductions, distances, route = [], [], [], [], [None]
+    grids, reductions, distances, route = [], [], [], [None]
 
     def recording_params(*a, **kw):
         g = real["params"](*a, **kw)
@@ -1722,11 +1762,6 @@ def script_in_process(c, command, cwd, *args, phase="17"):
         if planes[0].is_cuda:
             grids.append((planes, kw))
         return real["select"](*planes, **kw)
-
-    def recording_compact(*a):
-        if a[0].is_cuda:
-            compactions.append(a)
-        return real["compact"](*a)
 
     def recording_reduce(*a):
         got = real["reduce"](*a)
@@ -1760,41 +1795,39 @@ def script_in_process(c, command, cwd, *args, phase="17"):
         results.append(("transform", np.asarray(m, np.float64)))
         return m
 
-    def patch(params, select, compact, reduce, get_results, transform, knn_params, nn_distances):
-        fine.nn_grid_params, knn.nn_select, compaction.compact_kernel_cm = params, select, compact
-        voxelize.segment_reduce_sorted = reduce
+    def patch(params, select, reduce, get_results, transform, knn_params, nn_distances):
+        fine.nn_grid_params, knn.nn_select, voxelize.segment_reduce_sorted = params, select, reduce
         analyze.RegistrationAnalyzer.get_results = get_results
         fine.RegistrationComputer.get_result_transformation = transform
         knn.nn_grid_params, analyze._nn_distances = knn_params, nn_distances
 
-    os.chdir(cwd)
-    sys.argv = [f"cwipc {command}", *args]
-    patch(recording_params, recording_select, recording_compact, recording_reduce, recording_results,
-          recording_transform, recording_knn_params, recording_distances)
-    torch.cuda.synchronize()
-    for f in wrappers.values():
-        f.launches = 0
-    t_0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stdout(out):
-            rc = script.main()
-        torch.cuda.synchronize()
-    finally:
-        patch(*real.values())
-        sys.argv = argv
-        os.chdir(here)
-    wall = time.perf_counter() - t_0
-    launches = {name: f.launches for name, f in wrappers.items()}
     what = f"{command} {' '.join(args)}"
-    check(rc == 0, f"{what} (in process): exit {rc}: {out.getvalue()[-1500:]}")
-    check(len(grids) == launches["nn_select"] and len(compactions) == launches["compact"]
-          and len(reductions) == launches["segment_reduce"],
-          f"{what}: {len(grids)} kernel 5, {len(compactions)} kernel 3 and {len(reductions)} kernel 1 calls"
-          f" recorded, launches {launches}")
+    with held_compactions(c) as compactions:
+        os.chdir(cwd)
+        sys.argv = [f"cwipc {command}", *args]
+        patch(recording_params, recording_select, recording_reduce, recording_results, recording_transform,
+              recording_knn_params, recording_distances)
+        torch.cuda.synchronize()
+        for f in wrappers.values():
+            f.launches = 0
+        t_0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = script.main()
+            torch.cuda.synchronize()
+        finally:
+            patch(*real.values())
+            sys.argv = argv
+            os.chdir(here)
+        wall = time.perf_counter() - t_0
+        launches = {name: f.launches for name, f in wrappers.items()}
+        check(rc == 0, f"{what} (in process): exit {rc}: {out.getvalue()[-1500:]}")
+        check(len(grids) == launches["nn_select"] and len(compactions) == launches["compact"]
+              and len(reductions) == launches["segment_reduce"],
+              f"{what}: {len(grids)} kernel 5, {len(compactions)} kernel 3 and {len(reductions)} kernel 1 calls"
+              f" recorded, launches {launches}")
     for planes, kw in grids:
         c.nn_case(planes[:3], planes[3:], kw["gy"], kw["gz"], kw["cap_r"], kw["cap_q"], f"{command} grid {kw}")
-    for a in compactions:
-        c.compact_case(*a)
     for a, got in reductions:
         want = segment_reduce_sorted_plain(*a)
         check(all(same_bits(g, w) for g, w in zip(got, want)), f"{what}: kernel 1 differs from its plain version")
@@ -1988,6 +2021,10 @@ def cli_phase(c):
             check([int((tiles == 1 << cam).sum()) for cam in range(RIG_CAMERAS)] == counts,
                   f"fused replay: tiles {np.unique(tiles, return_counts=True)}, expected {counts}")
         cap.stop()
+        rig_files = {}
+        for name in os.listdir(rig):
+            with open(os.path.join(rig, name), "rb") as fp:
+                rig_files[name] = fp.read()
         print(f"{c.card} phase 17 (b): {RIG_CAMERAS} recordings of {counts} points (simulatecams seed {RIG_SEED},"
               f" 3 cm / 0.06 rad, 2 mm noise): register --nocoarse --nofloor in process {rig_s} s wall (stages"
               f" {stage_seconds(stdout)}), overall correspondence {corr_rig}, launches {rig_launches}, aligner"
@@ -2125,7 +2162,7 @@ def cli_phase(c):
         shutil.rmtree(work, ignore_errors=True)
     print(f"{c.card} phase 17 ok {c.lap()}")
     return {"launches": launches, "rig_launches": rig_launches, "register_s": reg_s, "rig_s": rig_s,
-            "scene_ply": scene_ply}
+            "scene_ply": scene_ply, "rig_files": rig_files}
 
 
 # ---------------------------------------------------------------------------
@@ -2450,6 +2487,252 @@ def tools_phase(c, scene_ply):
     print(f"{c.card} phase 18 ok {c.lap()}: (wall s, launches) by step"
           f" {[(k, v['wall_s'], v['launches']) for k, v in steps.items()]}")
     return steps
+
+
+# ---------------------------------------------------------------------------
+# phase 19, the viewer and the DASH pair on the card: view of the rig's
+# recordings with scripted keys (kernel 3 in the tile select), play and copy
+# (kernel 1 in copy --compress), forward --lldpkg -> --mt-lldplay over the
+# fake SIGNALS libraries (kernels 1 and 3)
+# ---------------------------------------------------------------------------
+
+VIEW_FRAMES, VIEW_FPS = 6, 4
+# after the i-th frame: next tile (from all: mask 1), tile 2 (mask 2), colorize, all tiles
+VIEW_KEYS = {1: "n", 2: "2", 3: "f", 4: "a"}
+VIEW_STATES = (("all", ""), ("tile 1 by n", "n"), ("tile 2", "n2"), ("tile 2, colorized", "n2f"),
+               ("all, colorized", "n2fa"))
+PLAY_FRAMES, DASH_FRAMES, PART_REPS = 3, 8, 5
+
+
+def viewed(c, command, cwd, *args, keys=None):
+    """A ``view`` or ``play`` command in process through
+    ``script_in_process`` (counts at 0 just before, every kernel call held
+    after), headless but not ``--nodisplay``: its window sink records each
+    image it draws and the renderer that drew it, and answers ``keys[i]``
+    once, after its i-th frame."""
+    from cwipc_util_tpu_torch.io import visualizer_sink as vs
+
+    keys, sinks, base = dict(keys or {}), [], vs.cwipc_window_sink
+
+    class Scripted(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.images, self.renderers = [], []
+            sinks.append(self)
+
+        def feed(self, pc, clear):
+            rv = super().feed(pc, clear)
+            self.images.append(self.get_image().copy())
+            self.renderers.append(self.renderer)
+            return rv
+
+        def interact(self, prompt, responses, millis):
+            return keys.pop(len(self.images), "\0")
+
+    vs.cwipc_window_sink = Scripted
+    try:
+        run = script_in_process(c, command, cwd, *args, phase="19")
+    finally:
+        vs.cwipc_window_sink = base
+    run.images = [im for sink in sinks for im in sink.images]
+    run.renderers = sorted({r for sink in sinks for r in sink.renderers})
+    return run
+
+
+def display_parts(c, frame):
+    """A displayed frame of the viewer, part by part, at each keymap state
+    of VIEW_STATES, on a fresh clone of ``frame`` (a cloud on the card) each
+    time: ms of the tile select (with colorize), the read and the render,
+    median of PART_REPS, and the host reads and uploads of each part (CUDA's
+    sync debug mode).  Every kernel 3 call is held to its plain version."""
+    import torch
+
+    from cwipc_util_tpu_torch.io.visualizer import Visualizer
+
+    rows = []
+    with held_compactions(c) as calls:
+        for name, keys in VIEW_STATES:
+            viz = Visualizer(nodisplay=False)
+            for k in keys:
+                viz.handle_command(k)
+            ms, reads = {"select": [], "read": [], "render": []}, None
+            for _ in range(PART_REPS):
+                pc = frame.clone()
+                torch.cuda.synchronize()
+                t_0 = time.perf_counter()
+                display, r_sel, u_sel = host_reads(lambda: viz._prepare_display_pc(pc))
+                torch.cuda.synchronize()
+                t_1 = time.perf_counter()
+                _, r_read, u_read = host_reads(display.get_numpy_array)
+                t_2 = time.perf_counter()
+                _, r_draw, u_draw = host_reads(lambda: viz.window.feed(display, clear=True))
+                t_3 = time.perf_counter()
+                n, r_count, _ = host_reads(display.count)
+                ms["select"].append((t_1 - t_0) * 1e3)
+                ms["read"].append((t_2 - t_1) * 1e3)
+                ms["render"].append((t_3 - t_2) * 1e3)
+                reads = (r_sel + r_read + r_draw + r_count, u_sel + u_read + u_draw)
+            rows.append((name, n, {k: statistics.median(v) for k, v in ms.items()}, reads, viz.window.renderer))
+    return rows, len(calls)
+
+
+def gl_beside_splat():
+    """The GL image of tests/test_gl.py's four points beside the splat's:
+    each colour's pixels within 1.5 px (tests/test_gl.py:32)."""
+    import numpy as np
+
+    from cwipc_util_tpu_torch.io.gl_render import render_points_gl
+    from cwipc_util_tpu_torch.io.render import OrbitCamera, render_points
+
+    cam = OrbitCamera(center=(0, 1, 0), distance=2.5)
+    xyz = np.array([[0, 1, 0], [0.3, 1.2, 0.1], [-0.2, 0.8, -0.1], [0.1, 1.1, 0.4]], np.float32)
+    rgb = np.array([[255, 0, 0], [0, 255, 0], [0, 0, 255], [255, 255, 0]], np.uint8)
+    sw = render_points(xyz, rgb, 320, 240, cam, point_size=3)
+    gl = render_points_gl(xyz, rgb, 320, 240, cam, point_size=3)
+    worst = 0.0
+    for color in map(tuple, rgb):
+        m_sw, m_gl = np.argwhere((sw == color).all(-1)), np.argwhere((gl == color).all(-1))
+        check(len(m_sw) > 0 and len(m_gl) > 0, f"GL beside the splat: colour {color} missing")
+        worst = max(worst, float(np.abs(m_sw.mean(0) - m_gl.mean(0)).max()))
+    check(worst <= 1.5, f"GL beside the splat: a point {worst} px from the splat's")
+    return worst
+
+
+def viewer_phase(c, rig_files):
+    """Phase 19: the viewer, play and copy, and the DASH pair, on the
+    default device (CUDA).  ``rig_files`` holds phase 17 (b)'s recordings
+    (4 PLY files and their cameraconfig.json)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import cwipc_util_tpu_torch as port
+    from cwipc_util_tpu_torch import codec, util
+    from cwipc_util_tpu_torch.net import sink_lldpkg, source_lldplay
+    from cwipc_util_tpu_torch.scripts import _scriptsupport
+
+    work = tempfile.mkdtemp(prefix="cwipc-viewer-")
+    env_before = os.environ.get("SIGNALS_SMD_PATH")
+    out = {}
+    try:
+        os.makedirs(os.path.join(work, "rig"))
+        for name, data in rig_files.items():
+            with open(os.path.join(work, "rig", name), "wb") as fp:
+                fp.write(data)
+
+        # (a) view of the rig's recordings, scripted keys, on the card and with --device cpu
+        args = ("--playback", "rig", "--loop", "--count", str(VIEW_FRAMES), "--fps", str(VIEW_FPS))
+        card = viewed(c, "view", work, *args, keys=VIEW_KEYS)
+        cpu = viewed(c, "view", work, *args, "--device", "cpu", keys=VIEW_KEYS)
+        check(len(card.images) == len(cpu.images) == VIEW_FRAMES,
+              f"view: {len(card.images)} frames drawn on the card, {len(cpu.images)} on the CPU; {VIEW_FRAMES} fed")
+        same = [a.tobytes() == b.tobytes() for a, b in zip(card.images, cpu.images)]
+        check(all(same), f"view: the card's images differ from the --device cpu run's at frames {same}")
+        check(len({im.tobytes() for im in card.images[:len(VIEW_STATES)]}) == len(VIEW_STATES),
+              "view: the keys did not change the image")
+        check(card.launches["compact"] >= 3 and not any(cpu.launches.values()),
+              f"view: kernel 3 must run in the tile select: {card.launches}; with --device cpu {cpu.launches}")
+        out["view_launches"] = card.launches
+        cap = port.cwipc_capturer(os.path.join(work, "rig", "cameraconfig.json"), c.dev)
+        check(cap.start(), "the rig's playback capturer did not start")
+        frame = cap.get()
+        cap.stop()
+        check(frame._device.type == "cuda", "the rig's fused frame is not on the card")
+        rows, held = display_parts(c, frame)
+        gl_err = gl_beside_splat() if "gl" in card.renderers else None
+        print(f"{c.card} phase 19 (a): view {' '.join(args)} in process with keys {VIEW_KEYS} after frames:"
+              f" {len(card.images)} frames, each image byte-equal to the --device cpu run's ({card.wall} s on the"
+              f" card, {cpu.wall} s on the CPU); renderer {card.renderers}"
+              + (f" (GL within {gl_err} px of the splat)" if gl_err is not None else "")
+              + f"; launches {card.launches}; a displayed frame by part (state, points, ms select / read / render,"
+              f" (host reads, uploads), renderer): {rows}; {held} kernel 3 calls of the parts held")
+
+        # (b) play and copy of a 3-frame recording of the 160k source
+        rec = os.path.join(work, "rec")
+        os.makedirs(rec)
+        gen = port.cwipc_synthetic(device=c.dev)
+        gen.start()
+        names = []
+        for i in range(PLAY_FRAMES):
+            names.append(f"pointcloud-{1000 + 33 * i}.ply")
+            port.cwipc_write(os.path.join(rec, names[-1]), gen.get(), port.CWIPC_FLAGS_BINARY)
+        gen.stop()
+        plays = {label: viewed(c, "play", work, "rec", "--count", str(PLAY_FRAMES), "--fps", str(VIEW_FPS), *dev)
+                 for label, dev in (("card", ()), ("cpu", ("--device", "cpu")))}
+        check(len(plays["card"].images) == len(plays["cpu"].images) == PLAY_FRAMES
+              and all(a.tobytes() == b.tobytes() for a, b in zip(plays["card"].images, plays["cpu"].images)),
+              "play: the card's images differ from the --device cpu run's")
+        copies = {}
+        for label, dev in (("card", ()), ("cpu", ("--device", "cpu"))):
+            one = script_in_process(c, "copy", work, os.path.join("rec", names[0]), f"one-{label}.cwipcdump", *dev,
+                                    phase="19")
+            comp = script_in_process(c, "copy", work, "--compress", "rec", f"compressed-{label}", *dev, phase="19")
+            copies[label] = (one, comp)
+        with open(os.path.join(work, "one-card.cwipcdump"), "rb") as a, open(os.path.join(work, "one-cpu.cwipcdump"),
+                                                                              "rb") as b:
+            check(a.read() == b.read(), "copy: the card's single file differs from the --device cpu run's")
+        check(copies["card"][1].launches["segment_reduce"] >= PLAY_FRAMES,
+              f"copy --compress: kernel 1 must run: {copies['card'][1].launches}")
+        got = sorted(os.listdir(os.path.join(work, "compressed-card")))
+        check(got == sorted(os.listdir(os.path.join(work, "compressed-cpu"))) and len(got) == PLAY_FRAMES,
+              f"copy --compress: files {got}")
+        # the card's streams against the CPU copy's device program (the
+        # --device cpu run takes the host twin, which differs at cell edges)
+        host_equal = 0
+        for name, src in zip(got, names):
+            cloud = port.cwipc_read(os.path.join(rec, src), int(src[11:-4]), device="cpu")
+            enc = codec.cwipc_new_encoder()
+            enc._feed_device(cloud)
+            with open(os.path.join(work, "compressed-card", name), "rb") as fp:
+                blob = fp.read()
+            check(blob == enc.get_bytes(), f"copy --compress: {name} differs from the CPU copy's device program")
+            with open(os.path.join(work, "compressed-cpu", name), "rb") as fp:
+                host_equal += fp.read() == blob
+        print(f"{c.card} phase 19 (b): play rec --count {PLAY_FRAMES} --fps {VIEW_FPS}: {PLAY_FRAMES} images"
+              f" byte-equal to the --device cpu run's ({plays['card'].wall} s, launches {plays['card'].launches});"
+              f" copy single -> single byte-equal ({copies['card'][0].wall} s); copy --compress stream -> stream"
+              f" ({copies['card'][1].wall} s, launches {copies['card'][1].launches}): {len(got)} streams byte-equal"
+              f" to the CPU copy's device program, {host_equal} also to the --device cpu run's host twin")
+
+        # (c) forward --lldpkg at tile 1 into the fake SIGNALS, back through --mt-lldplay, decoded on the card
+        os.environ["SIGNALS_SMD_PATH"] = str(util.build_fake_signals())
+        sink_lldpkg._lldpkg_dll_reference = source_lldplay._lldplay_dll_reference = None
+        url = os.path.join(work, "cdn")
+        fwd = script_in_process(c, "forward", work, "--synthetic", "--count", str(DASH_FRAMES), "--tile", "1",
+                                "--nodrop", "--lldpkg", url + "/live.mpd", phase="19")
+        check(fwd.launches["segment_reduce"] >= DASH_FRAMES and fwd.launches["compact"] >= DASH_FRAMES,
+              f"forward --lldpkg --tile 1: kernels 1 and 3 must run: {fwd.launches}")
+        out["dash_launches"] = fwd.launches
+        gen = port.cwipc_synthetic(device=c.dev)
+        gen.start()
+        enc = codec.cwipc_new_encoder(tilenumber=1)
+        enc.feed(gen.get())
+        gen.stop()
+        dec = codec.cwipc_new_decoder(device=c.dev)
+        dec.feed(enc.get_bytes())
+        want = dec.get().count()
+        src = _scriptsupport.activesource_factory_from_args(
+            _scriptsupport.ArgumentParser().parse_args(["--mt-lldplay", url]))()
+        src.start()
+        got = drain(src, DASH_FRAMES)
+        torch.cuda.synchronize()
+        src.stop()
+        counts = [pc.count() for pc in got]
+        check(len(got) == DASH_FRAMES and set(counts) == {want} and all(pc._device.type == "cuda" for pc in got),
+              f"DASH: {counts} decoded, expected {DASH_FRAMES} of {want} points on the card")
+        print(f"{c.card} phase 19 (c): forward --synthetic --count {DASH_FRAMES} --tile 1 --lldpkg (fake SIGNALS) in"
+              f" process: launches {fwd.launches}; back through --mt-lldplay and decoded on the card: {len(got)} of"
+              f" {DASH_FRAMES} frames, each of {want} points (a solo decode's count)")
+    finally:
+        if env_before is None:
+            os.environ.pop("SIGNALS_SMD_PATH", None)
+        else:
+            os.environ["SIGNALS_SMD_PATH"] = env_before
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"{c.card} phase 19 ok {c.lap()}")
+    return out
 
 
 def main() -> int:
@@ -3469,11 +3752,14 @@ def main() -> int:
     s16 = codec_phase(ctx)
     s17 = cli_phase(ctx)
     s18 = tools_phase(ctx, s17["scene_ply"])
+    s19 = viewer_phase(ctx, s17["rig_files"])
     for r in record:
         r["codec_launches"] = s16["launches"].get({"segment_reduce": "segment_reduce_sorted",
                                                    "compact": "compact_kernel_cm"}.get(r["name"]), 0)
         r["register_launches"] = s17["launches"][r["name"]]
         r["tools_launches"] = {step: v["launches"][r["name"]] for step, v in s18.items()}
+        r["view_launches"] = s19["view_launches"][r["name"]]
+        r["dash_launches"] = s19["dash_launches"][r["name"]]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -197,6 +197,13 @@ def cwipc_proxy(host: str, port: int, device=None):
     return cwipc_proxy_source(host, port, device=device)
 
 
+def cwipc_window(title: str):
+    """Create a viewer sink (interactive window or headless)."""
+    from .io.visualizer_sink import cwipc_window_sink
+
+    return cwipc_window_sink(title)
+
+
 def cwipc_check_module(name: str) -> bool:
     """Probe availability of an optional capturer/codec module."""
     from .models.capturer import check_module
@@ -260,6 +267,7 @@ __all__ = [
     "cwipc_synthetic",
     "cwipc_tilefilter",
     "cwipc_tilemap",
+    "cwipc_window",
     "cwipc_write",
     "cwipc_write_debugdump",
     "downsample_outliers_tilefilter",

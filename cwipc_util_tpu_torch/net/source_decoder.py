@@ -7,7 +7,10 @@ passive factory variants.
 
 The port of cwipc_util_tpu/net/source_decoder.py.  Decoded clouds are
 host-backed and build their buffer on the ``device`` the factory was given
-(``None`` means CUDA).
+(``None`` means CUDA).  ``start`` starts an active source before the
+decoding thread, not after it as the JAX package does: a DASH player that
+has not started yet returns None from ``get``, which the thread took for
+the end of the stream, so ``view --lldplay`` decoded no frame.
 """
 
 from __future__ import annotations
@@ -50,10 +53,12 @@ class _NetDecoder(threading.Thread, cwipc_activesource_abstract):
         # downstream start cascade reaches them again
         if self.running:
             return True
-        self.running = True
-        threading.Thread.start(self)
+        # the source first: one that has not started has nothing to get
+        # yet, and this thread would take its None for the end of the stream
         if isinstance(self.source, cwipc_activerawsource_abstract):
             self.source.start()
+        self.running = True
+        threading.Thread.start(self)
         return True
 
     def stop(self) -> None:

@@ -1,9 +1,12 @@
 """Tile synchronizer: merge N per-tile cloud streams into one fused stream.
 
 The port of cwipc_util_tpu/net/source_synchronizer.py: the stream-timing
-control plane is host code, copied unchanged; the fusion is the port's
+control plane is host code, copied; the fusion is the port's
 ``cwipc_join``, on the clouds' device, with the counts each cloud already
-knows (nothing is read back from the device to join).
+knows (nothing is read back from the device to join).  ``stop`` stops the
+multi-stream reader before the tiles' decoders (the JAX package stops it
+after them): a decoder waiting for its tile's next frame then sees the
+end of the stream at once, where it held up ``stop`` for its 2 s join.
 
 Re-implementation of the reference's synchronizer
 (reference: python/cwipc/net/source_synchronizer.py:106-282): per-tile head
@@ -69,10 +72,10 @@ class _Synchronizer(threading.Thread, cwipc_activesource_abstract):
 
     def stop(self) -> None:
         self.running = False
-        for s in self.sources:
-            s.stop()
         if self.reader is not None:
             self.reader.stop()
+        for s in self.sources:
+            s.stop()
         try:
             self.output_queue.put(None, block=False)
         except queue.Full:

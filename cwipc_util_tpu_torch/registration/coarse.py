@@ -7,8 +7,9 @@ are cut on the cloud's device (``get_pc_for_camnum``, kernel 3 on CUDA);
 the result cloud is transformed on the host, as everywhere in
 ``registration/util.py``, and joined on the device.  The manual corner picking
 of ``MultiCameraCoarseColorTargetInteractive`` falls back to the automated
-detector on a headless host, as in the JAX package; with a display
-``pick_points`` raises :class:`CwipcError` until the viewer is ported.
+detector on a headless host, as in the JAX package; with a display the
+user shift-clicks them in the viewer (``registration/util.py``
+``pick_points``).
 
 Re-implementation of the reference's multicoarse module
 (reference: python/cwipc/registration/multicoarse.py): each camera's tile is
@@ -364,8 +365,7 @@ class MultiCameraCoarseColorTargetInteractive(MultiCameraCoarseColorTarget):
     that order) of the target in a viewer window per camera
     (reference: multicoarse.py:277.., o3d pick window via
     registration/util.py:244-257).  Headless runs (no display) fall back
-    to the automated color segmentation of the parent class; with a
-    display ``pick_points`` raises until the viewer is ported."""
+    to the automated color segmentation of the parent class."""
 
     def _find_markers(self, pc: cwipc_pointcloud_wrapper) -> Dict[int, np.ndarray]:
         from .util import pick_points

@@ -5,16 +5,15 @@ selection, direction/floor filters, per-tile downsample, tile census,
 radius percentiles and the algorithm base classes.  Every cloud these
 helpers derive stays on its input's device.
 
-Not ported yet: the viewer pickers (``project_point_indices``,
-``pick_index_at``, ``show_pointcloud``, ``o3d_*``) and ``pick_points``
-on a host with a display; on a headless host ``pick_points`` returns no
-points, as the JAX package's does, so callers fall back to their
-automated detectors.
+The viewer pickers (``project_point_indices``, ``pick_index_at``,
+``pick_points``, ``show_pointcloud`` and the ``o3d_*`` helpers) read the
+cloud to the host once and project with the numpy renderer's camera, as
+the JAX package's do.  On a headless host ``pick_points`` returns no
+points at once, so callers fall back to their automated detectors.
 """
 
 from __future__ import annotations
 
-import os
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
@@ -26,7 +25,6 @@ from .. import (
     cwipc_tilefilter,
 )
 from ..core.buffers import PointBuffer, bucket_capacity
-from ..core.errors import CwipcError
 from ..core.pointcloud import cwipc_pointcloud_wrapper
 from ..ops import compaction
 
@@ -383,26 +381,173 @@ class BaseMulticamAlgorithm(MulticamAlgorithm):
         return self.get_pc_for_tilemask(tilenum)
 
 
-def _try_cv2_gui() -> bool:
-    """Whether a cv2 window can open: a display and cv2 (the JAX package's
-    io/visualizer_sink.py:23-32)."""
-    if not os.environ.get("DISPLAY") and os.name != "nt":
-        return False
+def project_point_indices(
+    xyz: np.ndarray, camera, width: int, height: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Project points with the software renderer's camera model: returns
+    (u, v, depth) screen coordinates per point (NaN u/v for points behind
+    the camera).  Factored out of the renderer so picking is testable
+    without a window."""
+    import math as _math
+
+    view = camera.view_matrix()
+    cam_pts = xyz @ view[:3, :3].T + view[:3, 3]
+    z = -cam_pts[:, 2]
+    f = 0.5 * height / _math.tan(_math.radians(camera.fov_deg) / 2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        u = np.where(z > 1e-6, (cam_pts[:, 0] / z) * f + width / 2, np.nan)
+        v = np.where(z > 1e-6, -(cam_pts[:, 1] / z) * f + height / 2, np.nan)
+    return u, v, z
+
+
+def pick_index_at(
+    xyz: np.ndarray, camera, width: int, height: int, x: float, y: float,
+    max_pixel_distance: float = 12.0,
+) -> int:
+    """The point index whose projection is nearest to screen (x, y), with
+    nearer-in-depth winning among candidates inside the pixel radius;
+    -1 when nothing is close enough.  (The deprojection core of the
+    interactive picker, reference util.py:244-257 o3d pick window.)"""
+    u, v, z = project_point_indices(xyz, camera, width, height)
+    d2 = (u - x) ** 2 + (v - y) ** 2
+    near = d2 <= max_pixel_distance**2
+    cand = np.where(np.isfinite(d2) & near)[0]
+    if cand.size == 0:
+        return -1
+    # among pixels within the radius prefer the closest to the camera
+    # (front surface), then the closest to the click
+    zc = z[cand]
+    zmin = zc.min()
+    front = cand[zc <= zmin * 1.02]
+    return int(front[np.argmin(d2[front])])
+
+
+def pick_points(
+    title: str, pc: cwipc_pointcloud_wrapper, count: int = 4,
+    timeout_ms: int = 120000,
+) -> List[int]:
+    """Interactive point picking: show the cloud in the software viewer
+    and let the user shift-click `count` points; returns their indices
+    (reference: registration/util.py:244-257, o3d VisualizerWithEditing).
+    Headless runs (no GUI available) return [] immediately — callers fall
+    back to the automated detector."""
+    import time as _time
+
+    from ..io.visualizer_sink import cwipc_window_sink
+
+    window = cwipc_window_sink(title)
     try:
-        import cv2  # noqa: F401
+        # headless: skip the (full-cloud) render entirely — the caller
+        # falls back to the automated detector anyway
+        if not window._gui:
+            return []
+        window.feed(pc, True)
+        import cv2
+
+        m = pc.get_numpy_matrix(onlyGeometry=True).astype(np.float32)
+        picked: List[int] = []
+
+        def on_mouse(event, x, y, flags, _param):
+            if event == cv2.EVENT_LBUTTONDOWN and (flags & cv2.EVENT_FLAG_SHIFTKEY):
+                idx = pick_index_at(m, window.camera, window.width, window.height, x, y)
+                if idx >= 0 and idx not in picked:
+                    picked.append(idx)
+                    print(f"pick_points: picked #{len(picked)}: index {idx} at {m[idx]}")
+            else:
+                window._on_mouse(event, x, y, flags, _param)
+
+        cv2.setMouseCallback(window.title, on_mouse)
+        print(f"pick_points: shift-click {count} points; q aborts")
+        deadline = _time.time() + timeout_ms / 1000.0
+        while len(picked) < count and _time.time() < deadline:
+            key = cv2.waitKey(50)
+            if key >= 0 and chr(key & 0xFF) == "q":
+                break
+        return picked
+    finally:
+        window.free(force=True)
+
+
+def show_pointcloud(title: str, pc: cwipc_pointcloud_wrapper, timeout_ms: int = 5000) -> None:
+    """Show a pointcloud in a viewer window until a key is pressed (or the
+    timeout elapses in headless runs) — the interactive inspection helper
+    used by registration flows (reference: registration/util.py:231-283,
+    o3d show window; ours uses the software viewer sink)."""
+    from ..io.visualizer_sink import cwipc_window_sink
+
+    window = cwipc_window_sink(title)
+    try:
+        window.feed(pc, True)
+        window.interact("Press any key to close", None, timeout_ms)
+    finally:
+        window.free(force=True)
+
+
+def _as_wrapper_or_o3d(pc):
+    """(wrapper_or_None, o3d_geometry_or_None) from either input kind."""
+    if isinstance(pc, cwipc_pointcloud_wrapper):
+        return pc, None
+    return None, pc
+
+
+def o3d_show_points(title: str, pc, from000: bool = False, keepopen: bool = False):
+    """Show an open3d (or wrapper) point cloud in a window (reference:
+    registration/util.py o3d_show_points).  Uses Open3D when installed;
+    otherwise falls back to the software viewer (then the cloud must be a
+    wrapper, keepopen is unsupported, and None is returned)."""
+    try:
+        import open3d  # type: ignore
     except ImportError:
-        return False
-    return True
+        open3d = None
+    wrapper, geom = _as_wrapper_or_o3d(pc)
+    if open3d is not None:
+        if geom is None:
+            geom = wrapper.get_o3d_pointcloud()
+        vis = open3d.visualization.Visualizer()
+        vis.create_window(window_name=title)
+        vis.add_geometry(geom)
+        vis.add_geometry(open3d.geometry.TriangleMesh.create_coordinate_frame())
+        if from000:
+            view_control = vis.get_view_control()
+            cam = view_control.convert_to_pinhole_camera_parameters()
+            cam.extrinsic = transformation_identity()
+            view_control.convert_from_pinhole_camera_parameters(cam)
+        vis.run()
+        if keepopen:
+            return vis
+        vis.destroy_window()
+        return None
+    if wrapper is None:
+        raise RuntimeError("o3d_show_points: open3d not installed and input is not a cwipc")
+    show_pointcloud(title, wrapper)
+    return None
 
 
-def pick_points(title: str, pc: cwipc_pointcloud_wrapper, count: int = 4, timeout_ms: int = 120000) -> List[int]:
-    """Interactive point picking in the viewer; returns the picked indices.
-    Headless runs (no GUI) return [] at once, as the JAX package's do, and
-    callers fall back to their automated detectors.  With a display it
-    raises: the viewer is not ported yet (ROADMAP Queue 1 item 3)."""
-    if not _try_cv2_gui():
-        return []
-    raise CwipcError(
-        f"{title}: pick_points needs the viewer (io/visualizer_sink.py), which is not"
-        " ported yet (ROADMAP Queue 1 item 3)"
-    )
+def o3d_pick_points(title: str, pc, from000: bool = False, limit: int = 64) -> List[int]:
+    """Let the user pick points; returns picked indices (reference:
+    registration/util.py o3d_pick_points, VisualizerWithEditing).  Uses
+    Open3D when installed; otherwise the software-viewer picker
+    (shift-click, q ends, at most `limit` picks; the cloud must then be a
+    wrapper)."""
+    try:
+        import open3d  # type: ignore
+    except ImportError:
+        open3d = None
+    wrapper, geom = _as_wrapper_or_o3d(pc)
+    if open3d is not None:
+        if geom is None:
+            geom = wrapper.get_o3d_pointcloud()
+        vis = open3d.visualization.VisualizerWithEditing()
+        vis.create_window(window_name=title, width=1280, height=720)
+        vis.add_geometry(geom)
+        if from000:
+            view_control = vis.get_view_control()
+            cam = view_control.convert_to_pinhole_camera_parameters()
+            cam.extrinsic = transformation_identity()
+            view_control.convert_from_pinhole_camera_parameters(cam)
+        vis.run()
+        vis.destroy_window()
+        return vis.get_picked_points()
+    if wrapper is None:
+        raise RuntimeError("o3d_pick_points: open3d not installed and input is not a cwipc")
+    return pick_points(title, wrapper, count=limit)

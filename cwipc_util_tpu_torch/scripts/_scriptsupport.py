@@ -7,8 +7,9 @@ and every file ``read_pointcloud`` reads (commands on
 ``BaseArgumentParser`` that read clouds add it with
 ``add_device_argument``).
 Naming CUDA where there is none raises :class:`CwipcError`, as
-``resolve_device`` does.  The DASH sources (``--lldplay``,
-``--mt-lldplay``) are not ported yet and raise :class:`CwipcError`.
+``resolve_device`` does.  The DASH sources decode on that device too:
+``--lldplay`` through one decoder, ``--mt-lldplay`` through a decoder a
+tile, joined by the synchronizer (as ``--mt-netclient``).
 
 Re-implementation of the reference's script-support layer
 (reference: python/cwipc/scripts/_scriptsupport.py): the single place that
@@ -47,7 +48,6 @@ from .. import (
 from .. import filters
 from ..abstract import cwipc_activesource_abstract
 from ..core.buffers import resolve_device
-from ..core.errors import CwipcError
 from ..core.pointcloud import cwipc_pointcloud_wrapper
 from ..models import playback
 from ..net import (
@@ -105,14 +105,6 @@ def _guess_playback_type(filenames: List[str]) -> Optional[str]:
     if len(exts) != 1:
         return None
     return exts.pop()
-
-
-def not_ported(flag: str, module: str, item: int) -> CwipcError:
-    """The error of a flag whose module the port does not have yet;
-    ``item`` is the ROADMAP Queue 1 item that ports it."""
-    return CwipcError(
-        f"{flag} needs {module}, which is not ported yet (ROADMAP Queue 1 item {item})"
-    )
 
 
 def activesource_factory_from_args(
@@ -198,9 +190,26 @@ def activesource_factory_from_args(
 
         return make_mt_netclient
     if args.lldplay:
-        raise not_ported("--lldplay", "net/source_lldplay.py", 4)
+        def make_lldplay() -> cwipc_activesource_abstract:
+            from ..net import source_lldplay
+
+            rdr = source_lldplay.cwipc_source_lldplay(args.lldplay, verbose=verbose2)
+            return cast(cwipc_activesource_abstract, activedecoder_factory(rdr, verbose=verbose2))
+
+        return make_lldplay
     if args.mt_lldplay:
-        raise not_ported("--mt-lldplay", "net/source_lldplay.py", 4)
+        def make_mt_lldplay() -> cwipc_activesource_abstract:
+            from ..net import source_lldplay
+
+            rdr = source_lldplay.cwipc_multisource_lldplay(args.mt_lldplay, verbose=verbose2)
+            rdr.start()
+            decoders = [
+                passivedecoder_factory(rdr.get_tile_source(i), verbose=verbose2)
+                for i in range(rdr.get_tile_count())
+            ]
+            return source_synchronizer.cwipc_source_synchronizer(rdr, decoders, verbose=verbose2)
+
+        return make_mt_lldplay
     if getattr(args, "kinect", False) or getattr(args, "realsense", False) or getattr(args, "orbbec", False):
         name = "kinect" if args.kinect else ("realsense2" if args.realsense else "orbbec")
         if not cwipc_check_module(name):

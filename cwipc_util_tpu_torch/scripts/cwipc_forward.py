@@ -3,8 +3,8 @@
 The port of cwipc_util_tpu/scripts/cwipc_forward.py.  The source delivers
 its clouds on ``--device`` (default CUDA) and the encoder sink compresses
 each on its device (kernel 1 in the downsample, kernel 3 for a tile's
-mask) in its own thread.  ``--lldpkg`` needs ``net/sink_lldpkg.py``,
-which is not ported yet, and raises :class:`CwipcError`.
+mask) in its own thread, then sends the bytes to a netserver, a relay
+(``--forward``) or a DASH ingest (``--lldpkg``, through SIGNALS).
 
 Re-implementation of the reference's forward script
 (reference: python/cwipc/scripts/cwipc_forward.py): source -> encoder (or
@@ -26,7 +26,6 @@ from ._scriptsupport import (
     activesource_factory_from_args,
     beginOfRun,
     endOfRun,
-    not_ported,
 )
 
 DEFAULT_PORT = 4303
@@ -83,7 +82,14 @@ def main() -> int:
 
         rawsink = _NullRawSink()
     elif args.lldpkg:
-        raise not_ported("--lldpkg", "net/sink_lldpkg.py", 4)
+        from ..net.sink_lldpkg import cwipc_sink_lldpkg
+
+        kwargs = {}
+        if args.seg_dur is not None:
+            kwargs["seg_dur_ms"] = args.seg_dur
+        if args.timeshift_buffer is not None:
+            kwargs["timeshift_buffer_ms"] = args.timeshift_buffer
+        rawsink = cwipc_sink_lldpkg(args.lldpkg, verbose=args.verbose > 1, **kwargs)
     elif args.forward:
         rawsink = cwipc_sink_netingest(args.forward, verbose=args.verbose > 1)
     else:

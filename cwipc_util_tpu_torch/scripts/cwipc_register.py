@@ -3,11 +3,11 @@
 The port of cwipc_util_tpu/scripts/cwipc_register.py.  Captures, files
 and the registration run on ``--device`` (default CUDA): the fine
 alignment's nearest neighbours on kernel 5 and its tile cuts on kernel 3.
-The viewer (``--interactive``, ``--guided`` without ``--guided_noviewer``)
-is not ported yet: it raises :class:`CwipcError` where the JAX script
-would use it, and the guided "show" prints that error and asks again, as
-the JAX script does when it cannot show.  ``--no_aruco`` and
-``--tabletop`` run the automated color-target detector.
+``--interactive`` (and ``--guided`` without ``--guided_noviewer``)
+captures through the port's viewer, ``RegistrationVisualizer``: its
+``w`` key selects the cloud on display.  The guided "show" opens the
+cloud in ``show_pointcloud``.  ``--no_aruco`` and ``--tabletop`` run the
+automated color-target detector.
 
 Re-implementation of the reference's register script
 (reference: python/cwipc/scripts/cwipc_register.py:61-685): create or load a
@@ -55,10 +55,47 @@ from ._scriptsupport import (
     activesource_factory_from_args,
     beginOfRun,
     endOfRun,
-    not_ported,
 )
 
 DEFAULT_FILENAME = "cameraconfig.json"
+
+
+def _make_registration_visualizer_class():
+    # Lazy base import: the viewer stack (cv2/GL) must not load for
+    # headless register runs that never go interactive.
+    from ..io.visualizer import Visualizer
+
+    class RegistrationVisualizer(Visualizer):
+        """Viewer variant for interactive capture: the 'w' key selects the
+        current cloud instead of writing a file, and cameraconfig reloads
+        go through the registrator (reference: cwipc_register.py:41-59)."""
+
+        captured_pc = None
+        reload_cameraconfig_callback = None
+
+        def write_current_pointcloud(self):
+            if self.current_pc is not None:
+                self.captured_pc = self.current_pc.clone()
+                self.stopped = True
+
+        def reload_cameraconfig(self):
+            if self.reload_cameraconfig_callback:
+                self.reload_cameraconfig_callback()
+            super().reload_cameraconfig()
+
+    return RegistrationVisualizer
+
+
+def __getattr__(name):
+    # module-level lazy attribute (PEP 562): RegistrationVisualizer is part
+    # of the reference module surface but must not import the viewer stack
+    # until requested.  Cached in globals() so every access returns the SAME
+    # class object (isinstance/subclass checks across accesses must hold).
+    if name == "RegistrationVisualizer":
+        cls = _make_registration_visualizer_class()
+        globals()[name] = cls
+        return cls
+    raise AttributeError(name)
 
 
 class Registrator:
@@ -209,10 +246,28 @@ class Registrator:
 
     def interactive_capture(self):
         """Show the live stream; the 'w' key selects the capture
-        (reference RegistrationVisualizer + interactive_capture, :44-59,:499-518).
-        The viewer is not ported yet."""
-        flag = "--guided" if self.args.guided else "--interactive"
-        raise not_ported(f"{flag} (the viewer)", "io/visualizer.py", 3)
+        (reference RegistrationVisualizer + interactive_capture, :44-59,:499-518)."""
+        import threading
+
+        from ._scriptsupport import SourceServer
+
+        RegistrationVisualizer = _make_registration_visualizer_class()
+        visualizer = RegistrationVisualizer(
+            self.verbose, title="cwipc_register", args=self.args
+        )
+        visualizer.reload_cameraconfig_callback = self._reload_cameraconfig_from_file
+        server = SourceServer(self.capturer, visualizer, self.args, owns_grabber=False)
+        thread = threading.Thread(target=server.run, name="cwipc_register.SourceServer")
+        visualizer.set_producer(thread)
+        visualizer.set_source(self.capturer)
+        thread.start()
+        visualizer.run()
+        server.stop()
+        thread.join()
+        if visualizer.captured_pc is None:
+            print("register: no capture selected in interactive mode. Exiting.")
+            sys.exit(1)
+        return visualizer.captured_pc
 
     # -- config -----------------------------------------------------------------
 
@@ -413,10 +468,12 @@ class Registrator:
                     if answer == "no":
                         return False
                     if answer == "show":
-                        # as the JAX script does when it cannot show: say
-                        # why and ask again
-                        error = not_ported("the guided 'show'", "show_pointcloud of registration/util.py", 3)
-                        print(f"register: cannot show: {error}")
+                        try:
+                            from ..registration.util import show_pointcloud
+
+                            show_pointcloud(f"Result after {label}", new_pc)
+                        except Exception as e:
+                            print(f"register: cannot show: {e}")
         finally:
             # one full merged cloud per stage otherwise accumulates across
             # guided-mode passes

@@ -15,6 +15,9 @@ for the codec's native host stages.
   half-written file.
 * A missing ``make`` or a failed build raises :class:`CwipcError`.
 
+``build_fake_signals`` builds the fake SIGNALS libraries of the DASH
+pair's tests the same way, into the same directory.
+
 It also holds the ctypes structs of a tile's info that
 ``get_tileinfo_raw`` builds (``cwipc_vector``, ``cwipc_tileinfo``;
 reference: python/cwipc/util.py:296-355), copied from the JAX package's
@@ -37,32 +40,48 @@ from .core.errors import CwipcError
 NATIVE_SRC = Path(__file__).resolve().parent.parent / "cwipc_util_tpu" / "native"
 NATIVE_BUILD = Path(__file__).resolve().parent / "_build" / "native"
 LIBNAME = "libcwipc_util_tpu.so"
+FAKE_SIGNALS = ("liblldash_packager.so", "liblldash_play.so")
 
 _lock = threading.Lock()
 _dll: Optional[ctypes.CDLL] = None
 
 
-def build_native() -> Path:
-    """Build the native library into ``_build/native/`` unless it is there."""
-    out = NATIVE_BUILD / LIBNAME
-    if out.exists():
-        return out
+def _build(what: str, names) -> Path:
+    """Build the named files of ``cwipc_util_tpu/native/`` into
+    ``_build/native/`` unless they are all there; returns that directory."""
+    outs = [NATIVE_BUILD / name for name in names]
+    if all(out.exists() for out in outs):
+        return NATIVE_BUILD
     make = shutil.which("make")
     if make is None:
-        raise CwipcError("cannot build the native cwipc_util library: make is not on PATH")
+        raise CwipcError(f"cannot build {what}: make is not on PATH")
     if not (NATIVE_SRC / "Makefile").exists():
-        raise CwipcError(f"cannot build the native cwipc_util library: no sources in {NATIVE_SRC}")
+        raise CwipcError(f"cannot build {what}: no sources in {NATIVE_SRC}")
     NATIVE_BUILD.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix=".build-", dir=NATIVE_BUILD))
     try:
-        rv = subprocess.run([make, "-C", str(NATIVE_SRC), f"BUILD={tmp}", str(tmp / LIBNAME)],
+        rv = subprocess.run([make, "-C", str(NATIVE_SRC), f"BUILD={tmp}", *(str(tmp / name) for name in names)],
                             capture_output=True, text=True)
-        if rv.returncode != 0 or not (tmp / LIBNAME).exists():
-            raise CwipcError(f"building the native cwipc_util library failed: {rv.stderr[-400:]}")
-        os.replace(tmp / LIBNAME, out)
+        if rv.returncode != 0 or not all((tmp / name).exists() for name in names):
+            raise CwipcError(f"building {what} failed: {rv.stderr[-400:]}")
+        for name in names:
+            os.replace(tmp / name, NATIVE_BUILD / name)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return out
+    return NATIVE_BUILD
+
+
+def build_native() -> Path:
+    """Build the native library into ``_build/native/`` unless it is there."""
+    return _build("the native cwipc_util library", [LIBNAME]) / LIBNAME
+
+
+def build_fake_signals() -> Path:
+    """Build the fake SIGNALS libraries (``fake_signals.c``, the Makefile's
+    ``fakesignals`` target: a file-system loopback with the real SMD ABI,
+    the test double of the DASH pair) into ``_build/native/`` unless they
+    are there; returns that directory, to name in ``SIGNALS_SMD_PATH``."""
+    return _build("the fake SIGNALS libraries", FAKE_SIGNALS)
 
 
 def cwipc_util_dll_load(libname: Optional[str] = None) -> ctypes.CDLL:

@@ -18,19 +18,32 @@ process through their scripts' ``main``.  Tolerances:
   CLI's, the saved correspondence within 5 % relative.
 * The recordings flow at 9,000 points: the conditions of the JAX test
   (tests/test_scripts.py:694-699), and 2 frames replayed fused.
-* A CUDA default without a card raises CwipcError; so does each flag
-  whose module is not ported (``--lldplay``, ``--mt-lldplay``,
-  ``forward --lldpkg``, the viewer's); ``register --plot`` saves its
-  figure.
+* A CUDA default without a card raises CwipcError.  The flags that
+  raised until their modules were ported run them: ``--lldplay`` and
+  ``--mt-lldplay`` make sources that decode what the fake SIGNALS
+  libraries hold, ``forward --lldpkg`` pushes to them,
+  ``--interactive`` and ``--guided`` take the cloud that the ``w`` key
+  selects in a scripted ``RegistrationVisualizer``, point for point the
+  JAX registrator's over the same recording; ``register --plot`` saves
+  its figure.
+* ``view``, ``play`` and ``copy``: ``copy`` writes the JAX command's files
+  byte for byte (single to single, stream to stream, ``--compress``) and
+  refuses the same mixes; ``play`` renders the JAX command's images byte
+  for byte (the numpy splat, headless); ``view --help_commands`` prints
+  the JAX keymap; ``view --profile`` writes a Chrome trace.
+* ``register --guided --guided_noviewer`` over scripted stdin: the
+  conditions of the JAX tests (tests/test_scripts.py:447-485).
 * ``register --no_aruco`` on a two-camera color target: the coarse
   stage's camera transforms within 1e-9 of the JAX register's.
 """
 
+import hashlib
 import json
 import os
 import re
 import subprocess
 import sys
+import time
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
 import numpy as np
@@ -39,15 +52,19 @@ import torch
 from test_torch_gicp_flow import _scenes
 
 import cwipc_util_tpu as jc
+from cwipc_util_tpu.io.visualizer import HELP as J_HELP
 import cwipc_util_tpu_torch as port
 from cwipc_util_tpu.registration import util as jutil
 from cwipc_util_tpu.scripts import cwipc_create_analysis_test as j_create
 from cwipc_util_tpu.scripts import cwipc_register as j_register
+from cwipc_util_tpu_torch import codec
+from cwipc_util_tpu_torch import util as putil
 from cwipc_util_tpu_torch.core.errors import CwipcError
 from cwipc_util_tpu_torch.filters.simulatecams import SimulatecamsFilter
 from cwipc_util_tpu_torch.models.synthetic import _generate_host
 from cwipc_util_tpu_torch.registration.cameraconfig import CameraConfig, default_cameraconfig
 from cwipc_util_tpu_torch.registration.util import cwipc_transform
+from cwipc_util_tpu_torch.net import sink_lldpkg, source_lldplay
 from cwipc_util_tpu_torch.scripts import _scriptsupport, cwipc_forward, cwipc_register
 from cwipc_util_tpu_torch.scripts.cwipc_create_analysis_test import perturbation
 
@@ -148,12 +165,11 @@ def test_version_help_and_check(tmp_path):
     rv = _cli_wait(procs[1])
     assert rv.returncode == 1  # as the JAX dispatcher's help
     listed = re.findall(r"^  (\w+) +- ", rv.stderr, re.M)
-    assert listed[:2] == ["grab", "register"], rv.stderr
-    assert listed[2:11] == ["analyze_registration", "create_analysis_test", "find_transform", "forward", "join",
+    assert listed[:5] == ["view", "grab", "play", "copy", "register"], rv.stderr
+    assert listed[5:14] == ["analyze_registration", "create_analysis_test", "find_transform", "forward", "join",
                             "netserver", "test_aligner", "timing", "toproxy"], rv.stderr
     for special in ("help", "version", "check", "python", "parallel"):
         assert special in listed
-    assert not {"view", "play", "copy"} & set(listed)
 
 
 def test_create_analysis_test_equals_the_jax_script(tmp_path, monkeypatch):
@@ -259,29 +275,117 @@ def test_cuda_default_without_a_card_raises(monkeypatch):
     src.stop()
 
 
-def test_flags_of_unported_modules_raise(tmp_path, monkeypatch):
-    for flag in ("--lldplay", "--mt-lldplay"):
-        with pytest.raises(CwipcError, match="net/source_lldplay.py"):
-            _scriptsupport.activesource_factory_from_args(_args(flag, "x", "--device", "cpu"))
-    monkeypatch.setattr(sys, "argv", ["cwipc forward", "--lldpkg", "http://localhost/x", "--synthetic",
-                                      "--device", "cpu"])
-    with pytest.raises(CwipcError, match="net/sink_lldpkg.py"):
-        cwipc_forward.main()
-    for flag in ("--interactive", "--guided"):
-        reg = cwipc_register.Registrator(_args(flag, "--device", "cpu"))
-        with pytest.raises(CwipcError, match="io/visualizer.py"):
-            reg.interactive_capture()
-    pts = np.zeros(64, port.POINT_DTYPE)
-    pts["x"] = np.arange(64, dtype=np.float32) * 0.01
-    pts["tile"] = np.repeat([1, 2], 32)
-    # --plot is ported: headless, the figure is saved as the JAX script saves it
+def _encoded(pts, ts):
+    enc = codec.cwipc_new_encoder(octree_bits=9)
+    enc.feed(port.cwipc_from_numpy_array(pts, ts, device="cpu"))
+    return enc.get_bytes()
+
+
+def _tile_points(tile, n=2000, seed=0):
+    rng = np.random.default_rng(seed + tile)
+    pts = np.zeros(n, port.POINT_DTYPE)
+    for f in ("x", "y", "z"):
+        pts[f] = rng.uniform(-1, 1, n)
+    pts["tile"] = tile
+    return pts
+
+
+def _drain_one(src, timeout=20):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if src.available(True):
+            return src.get()
+    return None
+
+
+def _answer_w(monkeypatch):
+    """The headless window sink answers ``w`` once it has drawn a frame."""
+    from cwipc_util_tpu_torch.io import gl_render, visualizer_sink
+
+    monkeypatch.setattr(gl_render, "gl_available", lambda: False)
+    monkeypatch.setattr(visualizer_sink.cwipc_window_sink, "interact",
+                        lambda win, prompt, responses, millis: "w" if win.get_image() is not None else "\0")
+
+
+FLAGS = ["--lldplay", "--mt-lldplay", "forward --lldpkg", "--interactive", "--guided", "--plot"]
+
+
+@pytest.mark.parametrize("flag", FLAGS)
+def test_flags_of_the_viewer_dash_and_plot_run_their_modules(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    monkeypatch.delenv("DISPLAY", raising=False)
-    reg = cwipc_register.Registrator(_args("--plot", "--device", "cpu"))
-    reg.cameraconfig = CameraConfig("unused.json")
-    reg.cameraconfig.load(json.dumps(default_cameraconfig("synthetic", ["a", "b"])).encode())
-    assert reg.check_alignment(port.cwipc_from_numpy_array(pts, 0, device="cpu"), "before") >= 0
-    assert (tmp_path / "registration_analysis.png").stat().st_size > 1000
+    monkeypatch.setenv("SIGNALS_SMD_PATH", str(putil.build_fake_signals()))
+    monkeypatch.setattr(sink_lldpkg, "_lldpkg_dll_reference", None)
+    monkeypatch.setattr(source_lldplay, "_lldplay_dll_reference", None)
+    url = str(tmp_path / "cdn") + "/"
+    if flag in ("--lldplay", "--mt-lldplay"):
+        tiles = (1,) if flag == "--lldplay" else (1, 2)
+        sink = sink_lldpkg.cwipc_sink_lldpkg(url)
+        for t in tiles:
+            sink.add_stream(tilenum=t, tiledesc={"normal": {"x": 0.0, "y": 0.0, "z": float(t)}})
+        sink.start()
+        want = 0
+        for i, t in enumerate(tiles):
+            blob = _encoded(_tile_points(t), 777)
+            dec = codec.cwipc_new_decoder(device="cpu")
+            dec.feed(blob)
+            want += dec.get().count()
+            assert sink.feed(blob, i)
+        sink.stop()
+        src = _scriptsupport.activesource_factory_from_args(_args(flag, url, "--device", "cpu"))()
+        assert src.start()
+        pc = _drain_one(src)
+        t_0 = time.time()
+        src.stop()
+        assert time.time() - t_0 < 3.0  # the tiles' decoders see the end at once (a 2 s join each before)
+        assert pc is not None and pc._device.type == "cpu" and pc.timestamp() == 777 and pc.count() == want
+        if flag == "--mt-lldplay":
+            assert sorted(np.unique(pc.get_numpy_array()["tile"])) == [1, 2]
+    elif flag == "forward --lldpkg":
+        monkeypatch.setattr(sys, "argv", ["cwipc forward", "--lldpkg", url + "live.mpd", "--synthetic",
+                                          "--npoints", "1000", "--count", "3", "--nodrop", "--device", "cpu"])
+        assert cwipc_forward.main() == 0
+        frames = sorted((tmp_path / "cdn").glob("s0_*.frame"))
+        assert (tmp_path / "cdn" / "streams.txt").read_text().splitlines()[0].strip() == "1" and len(frames) == 3
+        dec = codec.cwipc_new_decoder(device="cpu")
+        dec.feed(frames[0].read_bytes())
+        assert dec.get().count() > 0
+    elif flag in ("--interactive", "--guided"):
+        # both packages' registrators over the same 3 distinct frames: the
+        # cloud that "w" selects is the JAX one's, point for point
+        from cwipc_util_tpu.io import gl_render as jgl
+        from cwipc_util_tpu.io import visualizer_sink as jvs
+        from cwipc_util_tpu.scripts import _scriptsupport as j_support
+
+        assert cwipc_register.RegistrationVisualizer is cwipc_register.RegistrationVisualizer
+        _recording(str(tmp_path / "rec"))
+        _answer_w(monkeypatch)
+        monkeypatch.setattr(jgl, "gl_available", lambda: False)
+        monkeypatch.setattr(jvs.cwipc_window_sink, "interact",
+                            lambda win, prompt, responses, millis: "w" if win.get_image() is not None else "\0")
+        captured = []
+        for reg, support in ((cwipc_register.Registrator(_args(flag, "--playback", "rec", "--device", "cpu")),
+                              _scriptsupport),
+                             (j_register.Registrator(_args(flag, "--playback", "rec",
+                                                           parser=j_support.ArgumentParser())), j_support)):
+            reg.capturer = support.activesource_factory_from_args(reg.args)()
+            assert reg.capturer.start()
+            captured.append(reg.capture())
+            reg.capturer.stop()
+        pc, want = captured
+        assert pc._device.type == "cpu" and pc.count() == want.count() == 3000
+        assert pc.timestamp() == want.timestamp()
+        assert pc.get_numpy_array().tobytes() == np.asarray(want.get_numpy_array()).tobytes()
+    else:
+        pts = np.zeros(64, port.POINT_DTYPE)
+        pts["x"] = np.arange(64, dtype=np.float32) * 0.01
+        pts["tile"] = np.repeat([1, 2], 32)
+        # headless, the figure is saved as the JAX script saves it
+        monkeypatch.delenv("DISPLAY", raising=False)
+        reg = cwipc_register.Registrator(_args("--plot", "--device", "cpu"))
+        reg.cameraconfig = CameraConfig("unused.json")
+        reg.cameraconfig.load(json.dumps(default_cameraconfig("synthetic", ["a", "b"])).encode())
+        assert reg.check_alignment(port.cwipc_from_numpy_array(pts, 0, device="cpu"), "before") >= 0
+        assert (tmp_path / "registration_analysis.png").stat().st_size > 1000
 
 
 def test_register_no_aruco_matches_jax():
@@ -326,3 +430,122 @@ def test_source_server_grabs_through_filters():
     assert len(fed) == 3
     for pc in fed:
         assert pc._device.type == "cpu" and 0 < pc.count() < 4000 and pc.cellsize() >= 0.05
+
+
+_IMAGES = r"""
+import hashlib
+from cwipc_util_tpu_torch.io import visualizer_sink as _vs
+_feed = _vs.cwipc_window_sink.feed
+def _rec(self, pc, clear):
+    rv = _feed(self, pc, clear)
+    RECORDED.append(hashlib.sha1(self.get_image().tobytes()).hexdigest())
+    return rv
+_vs.cwipc_window_sink.feed = _rec
+"""
+
+
+def _recording(d, n=3, npoints=3000, seed=4):
+    """n PLY frames named by their timestamps, from a seed."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(d)
+    for i in range(n):
+        pts = np.zeros(npoints, port.POINT_DTYPE)
+        for f in ("x", "y", "z"):
+            pts[f] = rng.uniform(-1, 1, npoints)
+        pts["y"] += 1.0
+        for f in ("r", "g", "b"):
+            pts[f] = rng.integers(0, 256, npoints)
+        pts["tile"] = rng.choice(np.array([1, 2], np.uint8), npoints)
+        port.cwipc_write(os.path.join(d, f"pointcloud-{1000 + 33 * i}.ply"),
+                         port.cwipc_from_numpy_array(pts, 0, device="cpu"), port.CWIPC_FLAGS_BINARY)
+
+
+def _tree(d):
+    return {os.path.relpath(os.path.join(r, f), d): open(os.path.join(r, f), "rb").read()
+            for r, _, fs in os.walk(d) for f in fs}
+
+
+def test_view_play_and_copy_match_the_jax_commands(tmp_path, monkeypatch):
+    """``copy`` single -> single, stream -> stream (``--cwipcdump`` and
+    ``--compress``) writes the JAX command's files byte for byte and
+    refuses the same mixes; ``play`` (headless, the numpy splat) renders
+    the JAX command's images byte for byte; ``view --synthetic --nodisplay``
+    and ``grab`` then ``play`` run (tests/test_scripts.py:68, :72);
+    ``view --help_commands`` prints the JAX keymap; ``view --profile DIR``
+    writes a Chrome trace."""
+    from cwipc_util_tpu.io import gl_render as jgl
+    from cwipc_util_tpu.io import visualizer_sink as jvs
+    from cwipc_util_tpu.scripts import cwipc_copy as j_copy
+    from cwipc_util_tpu.scripts import cwipc_play as j_play
+
+    for side in ("port", "jax"):
+        _recording(str(tmp_path / side / "rec"))
+    src = "rec/pointcloud-1000.ply"
+    copies = [(src, "one.cwipcdump"), ("--cwipcdump", "rec", "converted"), ("--compress", "rec", "compressed"),
+              ("rec", "single.ply"), (src, "somedir"), (src, "out.CWIPCDUMP")]
+    argv = []
+    for args in copies:
+        argv += ["copy", *args, "--device", "cpu", "--then"]
+    argv += ["play", "rec", "--count", "3", "--fps", "10", "--device", "cpu", "--then",
+             "view", "--synthetic", "--npoints", "1000", "--nodisplay", "--count", "5", "--device", "cpu", "--then",
+             "grab", "--synthetic", "--npoints", "1000", "--count", "2", "grabbed", "--device", "cpu", "--then",
+             "play", "grabbed", "--nodisplay", "--count", "2", "-v", "--device", "cpu", "--then",
+             "view", "--help_commands", "--then",
+             "view", "--profile", "prof", "--synthetic", "--npoints", "1000", "--nodisplay", "--count", "2",
+             "--device", "cpu", "--then", "view", "--version"]
+    os.makedirs(tmp_path / "port" / "grabbed")
+    monkeypatch.setenv("CWIPC_GL", "0")
+    proc = _cli_start(tmp_path / "port", *argv, prelude=_IMAGES)
+    jcodes = [_jax_main(j_copy, tmp_path / "jax", monkeypatch, *args) for args in copies]
+    images = []
+    monkeypatch.setattr(jgl, "gl_available", lambda: False)
+    feed = jvs.cwipc_window_sink.feed
+
+    def recording_feed(win, pc, clear):
+        rv = feed(win, pc, clear)
+        images.append(hashlib.sha1(win.get_image().tobytes()).hexdigest())
+        return rv
+
+    monkeypatch.setattr(jvs.cwipc_window_sink, "feed", recording_feed)
+    assert _jax_main(j_play, tmp_path / "jax", monkeypatch, "rec", "--count", "3", "--fps", "10") == 0
+    rv = _cli_wait(proc)
+    codes = [int(c) for c in re.findall(r"^=== exit (-?\d+)$", rv.stdout, re.M)]
+    assert codes == jcodes + [0] * 7 and jcodes == [0, 0, 0, 1, 1, 1], (codes, rv.stderr[-1500:])
+    for tree in ("one.cwipcdump", "converted", "compressed"):
+        p, j = tmp_path / "port" / tree, tmp_path / "jax" / tree
+        got, want = (_tree(p), _tree(j)) if p.is_dir() else (p.read_bytes(), j.read_bytes())
+        assert got == want and len(got) > (2 if p.is_dir() else 32), tree
+    assert len(_tree(tmp_path / "port" / "compressed")) == 3
+    recorded = json.loads(rv.stderr.strip().splitlines()[-1][len("recorded "):])
+    assert recorded == images and len(images) == 3 and len(set(images)) == 3
+    outs = rv.stdout.split("=== exit")
+    assert "Cannot convert stream input" in rv.stderr + rv.stdout
+    assert len(os.listdir(tmp_path / "port" / "grabbed")) == 2 and "display_pointcount: count=2" in outs[9]
+    assert J_HELP.strip() in outs[10] and "Pause/resume" in J_HELP
+    assert json.loads((tmp_path / "port" / "prof" / "trace.json").read_text())["traceEvents"]
+    assert outs[12].split()[-1] == jc.cwipc_get_version()
+
+
+def _guided(cwd, answers):
+    prelude = f"import io; sys.stdin = io.StringIO({answers!r})"
+    return _cli_start(cwd, "create_analysis_test", "--ncamera", "2", "--npoints", "3000", "--translation", "0.02",
+                      "testpc.ply", "--device", "cpu", "--then",
+                      "register", "--guided", "--guided_noviewer", "--nograb", "testpc.ply", "--nocoarse",
+                      "--nofloor", "--device", "cpu", prelude=prelude)
+
+
+def test_register_guided_scripted(tmp_path):
+    """``register --guided --guided_noviewer`` over stdin: accepting stores
+    the fine matrices, rejecting leaves the cameraconfig at identity
+    (tests/test_scripts.py:447, :467)."""
+    for d in ("yes", "no"):
+        os.makedirs(tmp_path / d)
+    procs = {d: _guided(tmp_path / d, f"MultiCameraIterative\n{d}\nno\n") for d in ("yes", "no")}
+    for d, proc in procs.items():
+        rv = _cli_wait(proc)
+        assert rv.returncode == 0 and rv.stdout.count("=== exit 0") == 2, rv.stderr[-1500:]
+        assert "Fine alignment" in rv.stderr and "Multicamera alignment algorithm" in rv.stdout
+        assert "Accept (yes/no/show)" in rv.stdout
+        cfg = json.loads((tmp_path / d / "cameraconfig.json").read_text())
+        identity = [np.allclose(np.array(cam["trafo"]), np.identity(4)) for cam in cfg["camera"]]
+        assert len(identity) == 2 and all(identity) == (d == "no"), (d, identity)

@@ -13,8 +13,9 @@ mirrored: a camera seeded with ``set_transformation`` starts the marker
 chain (translations within 1e-9), and without it the chain cannot start.
 The interactive color target falls back on a headless host to the
 automated detector (transforms equal to the automated class's, and to the
-JAX interactive class's within 1e-9) and raises with a display until the
-viewer is ported.
+JAX interactive class's within 1e-9); with a display (cv2's window
+scripted) the same shift-clicks give transforms within 1e-9 of the JAX
+interactive class's, and a window that cannot open raises in both.
 """
 
 import jax  # noqa: F401  (JAX stays on the CPU: tests/conftest.py)
@@ -25,7 +26,6 @@ import chip_smoke
 import cwipc_util_tpu as jc
 import cwipc_util_tpu_torch as port
 from cwipc_util_tpu.registration import coarse as jcoarse
-from cwipc_util_tpu_torch.core.errors import CwipcError
 from cwipc_util_tpu_torch.registration import coarse, multicoarse
 from cwipc_util_tpu_torch.registration.util import cwipc_transform
 
@@ -89,7 +89,7 @@ def test_color_target_matches_jax_and_interactive_raises(monkeypatch):
     # the interactive variant: headless, the pickers return no points and
     # it falls back to the automated detector, as the JAX class does
     # (registration/coarse.py:359-366, registration/util.py:345-360); with
-    # a display the port raises until the viewer is ported
+    # a display the user's shift-clicks pick the corners
     monkeypatch.delenv("DISPLAY", raising=False)
     interactive = coarse.MultiCameraCoarseColorTargetInteractive()
     interactive.set_tiled_pointcloud(port.cwipc_from_numpy_matrix(m, 0, device="cpu"))
@@ -100,11 +100,64 @@ def test_color_target_matches_jax_and_interactive_raises(monkeypatch):
                          algo.get_result_transformations(), strict=True):
         np.testing.assert_allclose(T, Tj, rtol=0, atol=1e-9)
         np.testing.assert_array_equal(T, Tp)
+    # with a display (cv2's window scripted: each tile's picker gets the
+    # shift-click whose pick lands nearest each coloured corner that the
+    # automated detector found, red, green, blue, yellow), both packages'
+    # pickers give the same transforms; a window that cannot open raises
+    # in both
+    from test_torch_viewer import scripted_gui
+
+    from cwipc_util_tpu_torch.io.render import OrbitCamera
+    from cwipc_util_tpu_torch.registration.util import pick_index_at, project_point_indices
+
+    clicks = []
+    real_find = coarse.MultiCameraCoarseColorTarget._find_markers
+    for pc_cam in range(2):
+        tile = port.cwipc_tilefilter(port.cwipc_from_numpy_matrix(m, 0, device="cpu"), 1 << pc_cam)
+        corners = real_find(coarse.MultiCameraCoarseColorTarget(), tile)[0]
+        xyz = tile.get_numpy_matrix(onlyGeometry=True)
+        u, v, z = project_point_indices(xyz, OrbitCamera(), 640, 480)
+        for c in corners:
+            i = int(np.argmin(((xyz - c) ** 2).sum(1)))
+            # pick_index_at's rule on the projections computed once, over
+            # the pixels around the corner's
+            best = None
+            for x in range(int(round(u[i])) - 12, int(round(u[i])) + 13):
+                for y in range(int(round(v[i])) - 12, int(round(v[i])) + 13):
+                    d2 = (u - x) ** 2 + (v - y) ** 2
+                    cand = np.where(d2 <= 144)[0]
+                    if cand.size == 0:
+                        continue
+                    front = cand[z[cand] <= z[cand].min() * 1.02]
+                    miss = np.linalg.norm(xyz[front[np.argmin(d2[front])]] - c)
+                    if best is None or miss < best[0]:
+                        best = (miss, x, y)
+            assert pick_index_at(xyz, OrbitCamera(), 640, 480, best[1], best[2]) >= 0
+            clicks.append((best[1], best[2], True))
+    rearm = scripted_gui(monkeypatch, clicks)
     monkeypatch.setenv("DISPLAY", ":0")
-    interactive = coarse.MultiCameraCoarseColorTargetInteractive()
-    interactive.set_tiled_pointcloud(port.cwipc_from_numpy_matrix(m, 0, device="cpu"))
-    with pytest.raises(CwipcError, match="io/visualizer_sink.py"):
-        interactive.run()
+    got = {}
+    for name, mod, cloud in (("port", coarse, port.cwipc_from_numpy_matrix(m, 0, device="cpu")),
+                             ("jax", jcoarse, jc.cwipc_from_numpy_matrix(m, 0))):
+        rearm()
+        interactive = mod.MultiCameraCoarseColorTargetInteractive()
+        interactive.set_tiled_pointcloud(cloud)
+        assert interactive.run()
+        got[name] = interactive.get_result_transformations()
+    for T, Tj in zip(got["port"], got["jax"], strict=True):
+        np.testing.assert_allclose(T, Tj, rtol=0, atol=1e-9)
+    import cv2
+
+    def no_window(title):
+        raise cv2.error("no display")
+
+    monkeypatch.setattr(cv2, "namedWindow", no_window)
+    for mod, cloud in ((coarse, port.cwipc_from_numpy_matrix(m, 0, device="cpu")),
+                       (jcoarse, jc.cwipc_from_numpy_matrix(m, 0))):
+        interactive = mod.MultiCameraCoarseColorTargetInteractive()
+        interactive.set_tiled_pointcloud(cloud)
+        with pytest.raises(cv2.error, match="no display"):
+            interactive.run()
 
 
 class StubCoarse(coarse.MultiCameraCoarse):

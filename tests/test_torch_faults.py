@@ -4,11 +4,12 @@ test of the small-cloud outlier route away from the origin, on the CPU.
 * ``_cwipc_log_emit`` is exported from the port's package and listed in
   its ``__all__``, as the JAX package's (``__init__.py:68``, ``:249``):
   the logger callback of tests/test_api.py:279-288 gets the message.
-* The guided "show" of ``register`` prints ``register: cannot show:`` and
-  the error and asks again, as the JAX script does when it cannot show
-  (``scripts/cwipc_register.py:459-465``); the viewer is not ported yet.
-  (The headless fallback of ``MultiCameraCoarseColorTargetInteractive`` is
-  held in tests/test_torch_coarse.py.)
+* The guided "show" of ``register`` shows the stage's cloud in
+  ``show_pointcloud`` and asks again; where it cannot show, it prints
+  ``register: cannot show:`` and the error and asks again, as the JAX
+  script does (``scripts/cwipc_register.py:459-465``).  (The headless
+  fallback of ``MultiCameraCoarseColorTargetInteractive`` is held in
+  tests/test_torch_coarse.py.)
 * ``cwipc_remove_outliers`` on a 1 x 1 m sheet of 3,000 points 2 m and more
   from the origin (n <= 4096: the brute-force route), k 30, mult 1: the
   keep mask equals a float64 scipy cKDTree oracle's (keep where the mean
@@ -29,7 +30,7 @@ from scipy.spatial import cKDTree
 from test_torch_cli import _args
 
 import cwipc_util_tpu_torch as port
-from cwipc_util_tpu_torch.registration import fine
+from cwipc_util_tpu_torch.registration import fine, util
 from cwipc_util_tpu_torch.registration.cameraconfig import CameraConfig, default_cameraconfig
 from cwipc_util_tpu_torch.scripts import cwipc_register
 
@@ -89,11 +90,23 @@ def test_guided_show_prints_and_asks_again(monkeypatch, capsys):
     gen.start()
     cloud = gen.get()
     gen.stop()
-    monkeypatch.setattr(sys, "stdin", io.StringIO("show\nyes\n"))
+    shown = []
+    real = util.show_pointcloud
+
+    def show(title, pc, timeout_ms=5000):
+        # headless, the window waits out its timeout: a short one here
+        shown.append((title, pc.count()))
+        if len(shown) > 1:
+            raise port.CwipcError("no window")
+        real(title, pc, timeout_ms=50)
+
+    monkeypatch.setattr(util, "show_pointcloud", show)
+    monkeypatch.setattr(sys, "stdin", io.StringIO("show\nshow\nyes\n"))
     assert reg._run_multicam(cloud, _StillFlow, fine.RegistrationComputer_ICP_Point2Point, None, "fine alignment")
     out = capsys.readouterr().out
-    assert out.count("Accept (yes/no/show)") == 2
-    assert "register: cannot show: the guided 'show' needs show_pointcloud of registration/util.py" in out
+    assert out.count("Accept (yes/no/show)") == 3
+    assert shown == [("Result after fine alignment", cloud.count())] * 2
+    assert "Press any key to close" in out and "register: cannot show: no window" in out
 
 
 @pytest.mark.parametrize("shift", [0.0, 3.0])
