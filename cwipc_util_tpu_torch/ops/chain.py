@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..core.buffers import PointBuffer
+from ..utils.trace import span
 from . import compaction, outliers, voxelize
 from .cols_knn import bruteforce_md_subset, cols_knn_mean_distance
 from .window_knn import window_knn_mean_distance_cm
@@ -83,13 +84,14 @@ def downsample_outliers_tilefilter_exact(
     Returns (result, n_uncovered): the 0-d count of points whose md came
     from the fixup.  The fixup reads that count on the host once (its trip
     count); the rest of the chain stays on the device."""
-    x, y, z, rgba, cnt = voxelize.downsample_cm(buf, cellsize, out_capacity)
-    xyz = torch.stack([x, y, z], dim=-1)
-    # voxel_unique: the downsample postcondition allows the plain
-    # selection's per-column pre-selection
-    md, unc = cols_knn_mean_distance(xyz, cnt, cellsize, k, gy=gy, gz=gz, cap=cap, chunk=chunk,
-                                     voxel_unique=True)
-    md_fix = bruteforce_md_subset(xyz, cnt, unc, k)
-    md = torch.where(unc, md_fix, md)
-    keep = keep_mask(md, rgba, cnt, mult, tile)
-    return compaction.compact_cm(x, y, z, rgba, keep, cnt), unc.sum(dtype=torch.int32)
+    with span("cwipc.exact"):
+        x, y, z, rgba, cnt = voxelize.downsample_cm(buf, cellsize, out_capacity)
+        xyz = torch.stack([x, y, z], dim=-1)
+        # voxel_unique: the downsample postcondition allows the plain
+        # selection's per-column pre-selection
+        md, unc = cols_knn_mean_distance(xyz, cnt, cellsize, k, gy=gy, gz=gz, cap=cap, chunk=chunk,
+                                         voxel_unique=True)
+        md_fix = bruteforce_md_subset(xyz, cnt, unc, k)
+        md = torch.where(unc, md_fix, md)
+        keep = keep_mask(md, rgba, cnt, mult, tile)
+        return compaction.compact_cm(x, y, z, rgba, keep, cnt), unc.sum(dtype=torch.int32)

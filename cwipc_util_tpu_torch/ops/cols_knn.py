@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from .outliers import F32_MAX, _knn_sum_rows
 
 SENTINEL = 2**31 - 1
@@ -242,10 +243,11 @@ def cols_knn_mean_distance(
     version's per-column pre-selection."""
     from .cols_select import cols_select  # cols_select imports this module
 
-    xs_g, ys_g, zs_g, _, valid, drop_ring, point_slot = _cols_build(
-        xyz, count, cell, gy=gy, gz=gz, cap=cap, chunk=chunk, vmin_override=vmin_override,
-        want_orig=False,
-    )
+    with span("cwipc.grid_build"):
+        xs_g, ys_g, zs_g, _, valid, drop_ring, point_slot = _cols_build(
+            xyz, count, cell, gy=gy, gz=gz, cap=cap, chunk=chunk, vmin_override=vmin_override,
+            want_orig=False,
+        )
     sums, kths = cols_select(
         xs_g, ys_g, zs_g, k=k, gy=gy, gz=gz, cap=cap, chunk=chunk, voxel_unique=voxel_unique,
     )
@@ -259,13 +261,14 @@ def bruteforce_md_subset(xyz: torch.Tensor, count: torch.Tensor, sel: torch.Tens
     The number of selected points sets the trip count, so it is read on
     the host: this is the exact chain's one device-to-host sync (the JAX
     module keeps it on the device with a dynamic-trip-count fori_loop)."""
-    cap = xyz.shape[0]
-    valid = torch.arange(cap, dtype=torch.int32, device=xyz.device) < count
-    sel = sel & valid
-    col_mask = torch.where(valid, 0.0, F32_MAX)
-    ilist = torch.nonzero(sel).squeeze(1)  # host sync: the trip count
-    md = torch.zeros(cap, dtype=torch.float32, device=xyz.device)
-    for b in range(0, ilist.shape[0], block):
-        bidx = ilist[b:b + block]
-        md[bidx] = _knn_sum_rows(xyz[bidx], bidx, xyz, col_mask, k) / float(k)
-    return torch.where(sel, md, 0.0)
+    with span("cwipc.fixup"):
+        cap = xyz.shape[0]
+        valid = torch.arange(cap, dtype=torch.int32, device=xyz.device) < count
+        sel = sel & valid
+        col_mask = torch.where(valid, 0.0, F32_MAX)
+        ilist = torch.nonzero(sel).squeeze(1)  # host sync: the trip count
+        md = torch.zeros(cap, dtype=torch.float32, device=xyz.device)
+        for b in range(0, ilist.shape[0], block):
+            bidx = ilist[b:b + block]
+            md[bidx] = _knn_sum_rows(xyz[bidx], bidx, xyz, col_mask, k) / float(k)
+        return torch.where(sel, md, 0.0)

@@ -36,6 +36,7 @@ import torch
 
 from ..core.buffers import PointBuffer, pack_rgba, unpack_rgba
 from ..core.errors import CwipcError
+from ..utils.trace import span
 from .segment_reduce import SENTINEL, segment_reduce_sorted
 
 # Quantized coordinates are clamped to +/-2^29 so the sentinel (INT32_MAX)
@@ -148,9 +149,10 @@ def downsample_cm(buf: PointBuffer, cellsize, out_capacity: int):
     """Channel-major fast-path downsample for the fused chain: returns
     (x, y, z, rgba, count), each of capacity ``out_capacity``; voxels past
     it are dropped."""
-    smk, sfr, srgba, vmin_safe = _sort_front(buf, cellsize)
-    rows, key, nseg = segment_reduce_sorted(smk, sfr, srgba, out_capacity)
-    return _reduce_runs_cm(rows, key, nseg, vmin_safe, cellsize, out_capacity)
+    with span("cwipc.downsample"):
+        smk, sfr, srgba, vmin_safe = _sort_front(buf, cellsize)
+        rows, key, nseg = segment_reduce_sorted(smk, sfr, srgba, out_capacity)
+        return _reduce_runs_cm(rows, key, nseg, vmin_safe, cellsize, out_capacity)
 
 
 def _reduce_segments(new_seg, sx, sy, sz, srgba, count, ocap: int) -> PointBuffer:
