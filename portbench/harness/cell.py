@@ -2,10 +2,11 @@
 
 The traffic file names the program's entry (a function of
 ``cwipc_util_tpu_torch.ops.chain``), the configuration keys it takes, how
-frames arrive and how the outputs are judged.  The one loop so far is
-``closed``: the next frame's call follows the synchronize that ends the
-previous one, the frames cycled in the seed's order from those held on
-the card.
+frames arrive and the judge of its outputs; the configuration names its
+frame source (both resolve to files by name, harness/spec.py).  The one
+loop so far is ``closed``: the next frame's call follows the synchronize
+that ends the previous one, the frames cycled in the seed's order from
+those held on the card.
 
 Set-up (``setup_s``) runs from process start to the first timed frame:
 the program's import, the card's context, the sequence made on the card,
@@ -13,8 +14,8 @@ and one warm-up cycle over every frame held (which loads, and in a
 checkout's first run builds, the kernels).  The window runs whole frames
 until ``seconds`` have passed.  With ``trace`` the profiler records the
 window's first ``trace_cycles`` cycles.  After the window: the memory
-peak, then the check of one sampled output of each frame held against
-the plain reference, then the metrics.
+peak, then the judge's check of one sampled output of each frame held
+against its plain reference, then the metrics.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from . import bodies, spec, trace as tracing, work
+from . import spec, trace as tracing
 from .guard import forbidden_modules
 
 
@@ -52,28 +53,6 @@ def log(*args) -> None:
     print(*args, file=sys.stderr, flush=True)
 
 
-def _judge(held, outputs, cfg, traffic, want_counts: bool):
-    """Check each frame's sampled output against the reference; returns
-    (worst numbers, frames failed, work counts per frame held)."""
-    from reference import exact_chain, judge
-
-    chain = cfg["chain"]
-    readings, counts, failed = [], [], 0
-    for f, (xyz, rgba, count) in enumerate(held):
-        n = int(count)
-        ref = exact_chain.run(xyz, rgba, n, cellsize=chain["cellsize"], k=chain["k"], mult=chain["mult"],
-                              tile=chain["tile"], slab=traffic["slab_cells"] * chain["cellsize"])
-        if want_counts:
-            counts.append(work.frame_counts(ref, chain, n))
-        out = outputs.get(f)
-        if out is not None:
-            r = judge.judge_frame(ref, out.xyz, out.rgba, int(out.count), chain["cellsize"])
-            readings.append(r)
-            failed += not judge.verdict(r)
-        del ref
-    return (judge.worst(readings) if readings else None), failed, counts
-
-
 def run_cell(*, cfg: dict, traffic: dict, metrics: list[dict], seed: int, seconds: float, traced: bool,
              t_start: float, device: str = "cuda", parts: dict | None = None) -> tuple[dict, list[str]]:
     """One run of configuration ``cfg`` under ``traffic`` (both as their
@@ -85,13 +64,12 @@ def run_cell(*, cfg: dict, traffic: dict, metrics: list[dict], seed: int, second
     has one."""
     from cwipc_util_tpu_torch.core.buffers import PointBuffer
     from cwipc_util_tpu_torch.ops import chain as chain_mod
-    from reference import judge
 
     parts = dict(parts or {})
     if traffic["loop"] != "closed":
         raise spec.SpecError(f"traffic loop {traffic['loop']!r} is not known")
-    if traffic["judge"] not in ("exact_chain", None):
-        raise spec.SpecError(f"traffic judge {traffic['judge']!r} is not known")
+    judge = None if traffic["judge"] is None else spec.judge(traffic["judge"])
+    make_sequence = spec.generator(cfg)
     entry = getattr(chain_mod, traffic["entry"])
     args = {key: cfg["chain"][key] for key in traffic["args"]}
     on_card = device == "cuda"
@@ -106,7 +84,7 @@ def run_cell(*, cfg: dict, traffic: dict, metrics: list[dict], seed: int, second
         torch.empty(1, device=device)
     parts["card_context"] = time.monotonic() - t
     t = time.monotonic()
-    held, _ = bodies.make_sequence(cfg, seed, device, capacity=cfg["capacity"])
+    held, _ = make_sequence(cfg, seed, device, capacity=cfg["capacity"])
     bufs = [PointBuffer(xyz=x, rgba=r, count=c) for x, r, c in held]
     sync()
     parts["data"] = time.monotonic() - t
@@ -168,8 +146,8 @@ def run_cell(*, cfg: dict, traffic: dict, metrics: list[dict], seed: int, second
 
     checks, failed, counts = None, 0, []
     t = time.monotonic()
-    if traffic["judge"] == "exact_chain":
-        checks, failed, counts = _judge(held, outputs, cfg, traffic, want_counts=traced)
+    if judge is not None:
+        checks, failed, counts = judge.judge(held, outputs, cfg, traffic, want_counts=traced)
         log(f"check: {len(outputs)} frames judged in {time.monotonic() - t:.2f} s")
     del outputs
 

@@ -2,9 +2,10 @@
 
 A reader gets the run (``cell.Run``): its frames, window, latencies and
 set-up time, the chain's returned counts, and for a traced run the trace
-(``trace.Trace``), the frames it covers and their work counts
-(``work.frame_counts``).  It returns a number, or None where the run has
-nothing for it to read (no trace, or a kernel that did not run)."""
+(``trace.Trace``), the frames it covers and their work counts (from the
+traffic's judge: ``work.frame_counts`` for the exact chain).  It returns
+a number, or None where the run has nothing for it to read (no trace, or
+a kernel that did not run)."""
 
 from __future__ import annotations
 

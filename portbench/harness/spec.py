@@ -5,7 +5,19 @@
 * a metric's reader: ``portbench/metrics/<name>.py``, or, where there is
   none, ``portbench/metrics/<base>.py`` for the part of the name before
   its first dot (``frames_per_s`` reads ``frames_per_s.exact``).  A
-  reader is a module with ``read(run) -> float | None``.
+  reader is a module with ``read(run) -> float | None``;
+* a configuration's frame source: ``portbench/generators/<generator>.py``
+  for its ``"generator"`` key, ``harness/bodies.py`` where it has none.  A
+  source is a module with ``make_sequence(cfg, seed, device, capacity=None)
+  -> (held, info)``: ``held`` a list of (xyz f32 [capacity, 3], rgba int32
+  [capacity], count int32 0-d) on ``device``, ``info`` what else it tells;
+* a traffic's judge: ``portbench/judges/<judge>.py`` for its ``"judge"``
+  key (null: the run is unchecked).  A judge is a module with ``LIMITS``
+  (each number's name and its limit) and ``judge(held, outputs, cfg,
+  traffic, want_counts) -> (worst, failed, counts)``: the worst of each
+  number over the outputs judged (None where there were none), the frames
+  failed, and with ``want_counts`` one dict of work counts a frame held,
+  which the metric readers read (``Run.traced_counts``).
 """
 
 from __future__ import annotations
@@ -65,13 +77,38 @@ def reader_path(metric: str) -> Path:
     raise SpecError(f"no reader for metric {metric!r} under {HERE / 'metrics'}")
 
 
-def reader(metric: str):
-    """The ``read`` function of the metric's reader module."""
-    path = reader_path(metric)
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{path.stem.replace('.', '_')}", path)
+def _load(path: Path, kind: str):
+    spec = importlib.util.spec_from_file_location(f"portbench_{kind}_{path.stem.replace('.', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def _named(kind: str, folder: str, name: str) -> Path:
+    path = HERE / folder / f"{name}.py"
+    if not path.is_file():
+        raise SpecError(f"no {kind} {name!r}: no file {path}")
+    return path
+
+
+def reader(metric: str):
+    """The ``read`` function of the metric's reader module."""
+    return _load(reader_path(metric), "metric").read
+
+
+def generator(cfg: dict):
+    """The ``make_sequence`` function of the configuration's frame source."""
+    name = cfg.get("generator")
+    if name is None:
+        from . import bodies
+
+        return bodies.make_sequence
+    return _load(_named("frame source", "generators", name), "generator").make_sequence
+
+
+def judge(name: str):
+    """The judge module a traffic names (``LIMITS``, ``judge``)."""
+    return _load(_named("judge", "judges", name), "judge")
 
 
 def metrics_for(bench: dict, cell: str, traced: bool) -> list[dict]:

@@ -38,7 +38,7 @@ sys.path[:0] = [str(HERE), str(ROOT)]
 
 import torch  # noqa: E402
 
-from harness import bodies, spec  # noqa: E402
+from harness import spec  # noqa: E402
 from reference import exact_chain, judge  # noqa: E402
 
 
@@ -67,6 +67,7 @@ def main() -> None:
     from cwipc_util_tpu_torch.ops import chain as chain_mod
 
     cfg = spec.config_file(a.config)
+    make_sequence = spec.generator(cfg)
     traffic = spec.traffic(a.traffic)
     ch = cfg["chain"]
     args = {key: ch[key] for key in traffic["args"]}
@@ -85,7 +86,7 @@ def main() -> None:
         return keep_mask(md, rgba, cnt, mult, tile)
 
     for seed in a.seeds:
-        held, _ = bodies.make_sequence(cfg, seed, a.device, capacity=cfg["capacity"])
+        held, _ = make_sequence(cfg, seed, a.device, capacity=cfg["capacity"])
         kinds: dict[str, list] = {"program": []}
         md_gap, uncs = 0.0, []
         for xyz, rgba, count in held:

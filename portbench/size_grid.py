@@ -22,7 +22,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 
-from harness import bodies, spec  # noqa: E402
+from harness import spec  # noqa: E402
 from reference.exact_chain import downsample  # noqa: E402
 
 
@@ -33,8 +33,9 @@ def pow2(n: int) -> int:
 def sizes(cfg: dict, seeds, device) -> dict:
     cell = cfg["chain"]["cellsize"]
     most_pts = most_vox = ext_y = ext_z = fullest = 0
+    make_sequence = spec.generator(cfg)
     for seed in seeds:
-        frames, _ = bodies.make_sequence(cfg, seed, device)
+        frames, _ = make_sequence(cfg, seed, device)
         for xyz, rgba, count in frames:
             n = int(count)
             vox = downsample(xyz, rgba, n, cell)["vox"]

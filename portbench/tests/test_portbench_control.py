@@ -1,14 +1,15 @@
 """The control: the reference computed in bfloat16 (the precision below
 the configuration's float32) put in the program's place must fail the
 check, on three seeds.  On the CPU at the tiny size; on the card
-(``-m card``) at each cell's own size, as the limits were read there."""
+(``-m card``) at the own size of each cell judged by ``exact_chain``, as
+the limits were read there."""
 
 from __future__ import annotations
 
 import pytest
 import torch
 
-from harness import bodies, spec
+from harness import spec
 from reference import exact_chain, judge
 
 SEEDS = (2**31 + 1, 2**31 + 2, 2**31 + 3)
@@ -17,7 +18,7 @@ SEEDS = (2**31 + 1, 2**31 + 2, 2**31 + 3)
 def _control_numbers(cfg: dict, seed: int, device: str, frames: int) -> list[dict]:
     ch = cfg["chain"]
     slab = spec.traffic("exact-closed")["slab_cells"] * ch["cellsize"]
-    held, _ = bodies.make_sequence(cfg, seed, device, capacity=cfg["capacity"])
+    held, _ = spec.generator(cfg)(cfg, seed, device, capacity=cfg["capacity"])
     out = []
     for xyz, rgba, count in held[:frames]:
         n = int(count)
@@ -40,7 +41,8 @@ def test_control_fails_on_the_cpu(tiny_config, seed):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", [w["name"] for w in spec.load_bench()["workloads"]])
+@pytest.mark.parametrize("cell", [w["name"] for w in spec.load_bench()["workloads"]
+                                  if spec.traffic(w["traffic"])["judge"] == "exact_chain"])
 def test_control_fails_at_the_cells_size(cuda, cell):
     bench = spec.load_bench()
     cfg = spec.config(bench, spec.workload(bench, cell)["config"])

@@ -39,6 +39,10 @@ def test_cell_resolves(cell):
     traffic = spec.traffic(w["traffic"])
     cfg = spec.config(BENCH, w["config"])
     assert set(traffic["args"]) <= set(cfg["chain"])
+    assert callable(spec.generator(cfg))
+    if traffic["judge"] is not None:
+        judge = spec.judge(traffic["judge"])
+        assert callable(judge.judge) and judge.LIMITS
     assert w["chips"] == 1 and len(w["why"]) <= 200
     e2e = [m["name"] for m in spec.metrics_for(BENCH, cell, traced=False)]
     assert "setup_s" in e2e and len(e2e) >= 2
